@@ -1,0 +1,124 @@
+"""The port's two rules, as tests: no JAX at run time, and the card by
+default.
+
+- a fresh interpreter imports the port's serving stack and
+  ``chip_smoke.py`` (as a module) without ``jax`` or ``theanompi_tpu``
+  ever entering ``sys.modules``;
+- no file of ``theanompi_torch/`` (nor ``chip_smoke.py``) imports either;
+- entry points called without ``device`` on a machine with no CUDA raise
+  instead of running on the CPU;
+- kernel modules import, and their wrappers run on CPU tensors, without
+  ``nvcc``: the build happens at the first launch on the card.
+"""
+
+import ast
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "theanompi_torch")
+_FORBIDDEN = ("jax", "jaxlib", "theanompi_tpu")
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG):
+        out.extend(os.path.join(dirpath, f) for f in files
+                   if f.endswith(".py"))
+    return sorted(out)
+
+
+def test_import_wall_in_a_fresh_interpreter():
+    code = (
+        "import json, sys\n"
+        "import theanompi_torch.serving, theanompi_torch.serving.cli\n"
+        "import theanompi_torch.convert, theanompi_torch.kernels\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{_FORBIDDEN!r})\n"
+        "print(json.dumps(bad))\n")
+    env = {**os.environ, "PYTHONPATH": REPO}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
+
+
+def test_static_scan_finds_no_forbidden_import():
+    line_re = re.compile(r"^\s*(import|from)\s+(jax|theanompi_tpu)")
+    for path in _port_files():
+        with open(path) as f:
+            src = f.read()
+        for n, line in enumerate(src.splitlines(), 1):
+            assert not line_re.match(line), f"{path}:{n}: {line}"
+        for node in ast.walk(ast.parse(src)):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for name in names:
+                assert name.split(".")[0] not in _FORBIDDEN, \
+                    f"{path}:{node.lineno} imports {name}"
+
+
+def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
+    from theanompi_torch.models.transformer_lm import TransformerLM
+    from theanompi_torch.parallel.mesh import resolve_device
+    from theanompi_torch.serving import InferenceEngine, PagedKVCache
+    from theanompi_torch.serving.cli import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    model = TransformerLM({"dim": 16, "heads": 2, "n_layers": 1,
+                           "seq_len": 16, "vocab": 12,
+                           "precision": "fp32"})
+    params = model.init_params(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        InferenceEngine(model, params, block_size=4, max_batch=1)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        PagedKVCache.create(n_layers=1, num_blocks=2, block_size=4, heads=2,
+                            head_dim=8, max_batch=1, max_context=8)
+    # the CLI reports it as a serving failure (exit 70), never serves
+    assert main(["--set", "dim=16", "--set", "heads=2", "--set",
+                 "n_layers=1", "--set", "seq_len=16", "--set",
+                 "vocab=12"]) == 70
+
+
+def test_kernel_modules_build_lazily():
+    import theanompi_torch.kernels as K
+    from theanompi_torch.ops.flash_attention import FLASH_FWD
+    from theanompi_torch.ops.paged_attention import PAGED_DECODE
+    from theanompi_torch.ops.quant import INT8_MATMUL
+    from theanompi_torch.ops import quant
+    from theanompi_torch.serving.quant import quantize_tree
+
+    assert {k.name for k in K.KERNELS} == {"flash_fwd", "paged_decode",
+                                           "int8_matmul"}
+    for k in (FLASH_FWD, PAGED_DECODE, INT8_MATMUL):
+        assert os.path.exists(os.path.join(K.CSRC, k.source))
+    before = {k.name: k.launches for k in K.KERNELS}
+    # CPU tensors take the plain versions: nothing builds, nothing counts
+    w = {"w": torch.randn(8, 16, generator=torch.Generator().manual_seed(0))}
+    qt = quantize_tree(w, torch.Generator().manual_seed(1), 32)[0]["w"]
+    x = torch.ones(2, 8)
+    quant.int8_matmul(x, qt)
+    assert {k.name: k.launches for k in K.KERNELS} == before
+    assert all(k._lib is None for k in K.KERNELS)
+    if not any(os.path.exists(os.path.join(d, "nvcc")) for d in
+               os.environ.get("PATH", "").split(os.pathsep) + [
+                   "/usr/local/cuda/bin"]):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            K._nvcc()
+    assert np.isfinite(quant.int8_matmul_ref(x, qt).numpy()).all()

@@ -1,0 +1,25 @@
+"""theanompi_torch: the PyTorch/CUDA port of ``theanompi_tpu``.
+
+The JAX package stays the reference; this package re-implements its
+slices in PyTorch for an NVIDIA H100, with every Pallas kernel on a
+ported path replaced by a CUDA C++ kernel written for Hopper (sm_90a)
+under :mod:`theanompi_torch.kernels`.
+
+Slice 1 serves the dense ``TransformerLM`` end to end:
+
+- :mod:`theanompi_torch.parallel.mesh` — ``Precision`` policies and the
+  device rule (``resolve_device``);
+- :mod:`theanompi_torch.ops` — initializers, ``Dense``/``LayerNorm``/
+  ``Embedding``, the int8 weight format and matmul (kernel 5), flash
+  attention forward (kernel 1), paged decode attention (kernel 4) and the
+  attention layer;
+- :mod:`theanompi_torch.models.transformer_lm` — the model's serving path;
+- :mod:`theanompi_torch.serving` — paged KV cache, engine, prefix cache,
+  continuous-batching scheduler and the ``python -m
+  theanompi_torch.serving`` CLI;
+- :mod:`theanompi_torch.convert` — the reference's param trees into the
+  port's.
+
+Importing the package imports neither JAX nor anything that builds a
+kernel: the CUDA sources compile at first use.
+"""

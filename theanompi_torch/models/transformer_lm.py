@@ -1,0 +1,222 @@
+"""Decoder-only transformer LM: the dense model's serving path.
+
+Counterpart of ``theanompi_tpu/models/transformer_lm.py`` (``_Block`` and
+``TransformerLM``), with the reference's param tree and key names —
+``00_embedding``, ``01_positionembedding``, ``NN__block/{ln1, attn/{q,k,v,o},
+ln2, up, down}``, the final ``NN_layernorm`` and ``head`` — so a converted
+reference tree (:mod:`theanompi_torch.convert`) plugs straight in.
+
+Entry points for serving: ``apply_logits`` (full forward, the batched
+reference), ``apply_prefill`` (one prompt, K/V into the paged cache),
+``apply_prefill_partial`` (an uncached suffix over a cached prefix) and
+``apply_decode`` (one token for every slot of a fixed batch).  The K/V
+writes go into the cache's pools in place; each method returns the same
+cache object.  The MoE and pipeline variants and the training loss come
+with later slices.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from theanompi_torch.models.contract import Model
+from theanompi_torch.ops import initializers as init_lib
+from theanompi_torch.ops import quant
+from theanompi_torch.ops.attention import MultiHeadAttention, PositionEmbedding
+from theanompi_torch.ops.layers import Dense, Embedding, Layer, LayerNorm
+
+
+class _Block(Layer):
+    """Pre-norm transformer block: LN -> MHA -> residual, LN -> MLP ->
+    residual (tanh-approximate GELU, the reference's ``jax.nn.gelu``)."""
+
+    def __init__(self, dim: int, heads: int, attn_impl: str = "auto"):
+        super().__init__()
+        w02 = init_lib.normal(0.02)
+        self.subs = nn.ModuleDict({
+            "ln1": LayerNorm(),
+            "attn": MultiHeadAttention(dim, heads, causal=True,
+                                       impl=attn_impl),
+            "ln2": LayerNorm(),
+            "up": Dense(4 * dim, w_init=w02),
+            "down": Dense(dim, w_init=w02),
+        })
+
+    def init(self, gen, in_shape):
+        params, shape = {}, tuple(in_shape)
+        for name, layer in self.subs.items():
+            p, out = layer.init(gen, shape if name in ("up", "down")
+                                else in_shape)
+            if name in ("up", "down"):
+                shape = out
+            if p:
+                params[name] = p
+        return params, tuple(in_shape)
+
+    def _ffn(self, params, h):
+        h = self.subs["up"](params["up"], h)
+        h = F.gelu(h, approximate="tanh")
+        return self.subs["down"](params["down"], h)
+
+    def _finish(self, params, x, ctx):
+        """Output projection, residual, and the MLP half."""
+        s = self.subs
+        x = x + s["attn"].project_out(
+            params["attn"], ctx.reshape(x.shape[0], x.shape[1], -1))
+        return x + self._ffn(params, s["ln2"](params["ln2"], x))
+
+    def forward(self, params, x):
+        s = self.subs
+        x = x + s["attn"](params["attn"], s["ln1"](params["ln1"], x))
+        return x + self._ffn(params, s["ln2"](params["ln2"], x))
+
+    def prefill_step(self, params, x, cache, layer_idx, table_row):
+        """Full-prompt forward of one block: writes this layer's K/V into
+        the cache and attends causally within the prompt through
+        ``MultiHeadAttention.attend`` (kernel 1 on the card).  ``x``
+        ``[1, P_pad, D]`` -> y."""
+        attn = self.subs["attn"]
+        q, k, v = attn.project_qkv(params["attn"],
+                                   self.subs["ln1"](params["ln1"], x))
+        cache.write_prefill(layer_idx, k, v, table_row)
+        return self._finish(params, x, attn.attend(q, k, v))
+
+    def prefill_suffix_step(self, params, x, cache, layer_idx, suffix_row,
+                            full_row, prefix_len):
+        """Partial-prefill forward: ``x`` ``[1, S_pad, D]`` holds only the
+        uncached suffix (absolute positions ``prefix_len..``); its K/V go
+        into ``suffix_row``'s blocks and the queries attend over the full
+        row, cached prefix included.  -> y."""
+        attn = self.subs["attn"]
+        q, k, v = attn.project_qkv(params["attn"],
+                                   self.subs["ln1"](params["ln1"], x))
+        cache.write_prefill(layer_idx, k, v, suffix_row)
+        ctx = cache.attend_prefill(layer_idx, q, full_row, prefix_len)
+        return self._finish(params, x, ctx)
+
+    def decode_step(self, params, x, cache, layer_idx, positions):
+        """One-token forward: appends this layer's K/V at ``positions`` and
+        attends over the cached context (kernel 4 on the kernel path).
+        ``x`` ``[B, 1, D]``, ``positions`` ``[B]`` -> y."""
+        attn = self.subs["attn"]
+        q, k, v = attn.project_qkv(params["attn"],
+                                   self.subs["ln1"](params["ln1"], x))
+        cache.write_decode(layer_idx, k[:, 0], v[:, 0], positions)
+        return self._finish(params, x,
+                            cache.attend_decode(layer_idx, q[:, 0], positions))
+
+
+class TransformerLM(Model):
+    default_config = {
+        "seq_len": 256,
+        "dim": 256,
+        "heads": 8,
+        "n_layers": 4,
+        "vocab": 256,
+        # serving runs with dropout off; the key is kept so reference
+        # configs pass through unchanged
+        "dropout": 0.0,
+        # "auto": kernel 1 on the card (its wrapper raises on a shape it
+        # does not take), blockwise elsewhere; "pallas"/"blockwise" force
+        # a path (the reference's names)
+        "attn_impl": "auto",
+    }
+
+    def __init__(self, config=None):
+        super().__init__(config)
+        cfg = self.config
+        layers: list[Layer] = [
+            Embedding(self.vocab, cfg["dim"], w_init=init_lib.normal(0.02)),
+            PositionEmbedding(cfg["seq_len"], cfg["dim"]),
+        ]
+        for _ in range(cfg["n_layers"]):
+            layers.append(_Block(cfg["dim"], cfg["heads"],
+                                 attn_impl=cfg["attn_impl"]))
+        layers.append(LayerNorm())
+        self.layers = [(f"{i:02d}_{layer.name}", layer)
+                       for i, layer in enumerate(layers)]
+        self.head = Dense(self.vocab, w_init=init_lib.glorot_normal)
+
+    def init_params(self, gen: torch.Generator):
+        """-> fp32 param tree (the reference's layout) on ``gen``'s device."""
+        shape = (self.config["seq_len"],)
+        params = {}
+        for name, layer in self.layers:
+            p, shape = layer.init(gen, shape)
+            if p:
+                params[name] = p
+        params["head"], _ = self.head.init(gen, shape)
+        return params
+
+    def _head_logits(self, cp, h):
+        y = quant.matmul_any(h, cp["head"]["w"])
+        if "b" in cp["head"]:
+            y = y + cp["head"]["b"].to(h.dtype)
+        return y.float()
+
+    def _embed(self, cp, tokens):
+        return cp[self.layers[0][0]]["w"][tokens]
+
+    def _run(self, cp, x, block_fn):
+        """Position-embedded ``x`` through the blocks and the final LN."""
+        li = 0
+        for name, layer in self.layers[2:]:
+            if isinstance(layer, _Block):
+                x = block_fn(layer, cp[name], x, li)
+                li += 1
+            else:
+                x = layer(cp[name], x)
+        return x
+
+    def apply_logits(self, params, tokens):
+        """Full-sequence forward to fp32 logits ``[B, T, V]`` — the batched
+        reference the serving tests compare incremental decode against."""
+        cp = self.precision.cast_to_compute(params)
+        x = self.layers[1][1](cp[self.layers[1][0]], self._embed(cp, tokens))
+        x = self._run(cp, x, lambda blk, p, h, li: blk(p, h))
+        return self._head_logits(cp, x)
+
+    def apply_prefill(self, params, kv_cache, table_row, tokens):
+        """Prompt prefill for ONE sequence: ``tokens`` ``[1, P_pad]`` (end-
+        padded to whole cache blocks — causal masking keeps the padding out
+        of every real position), ``table_row`` its block ids.  Writes K/V
+        into ``kv_cache`` in place.  -> (logits ``[1, P_pad, V]`` fp32,
+        kv_cache)."""
+        cp = self.precision.cast_to_compute(params)
+        x = self.layers[1][1](cp[self.layers[1][0]], self._embed(cp, tokens))
+        x = self._run(cp, x, lambda blk, p, h, li: blk.prefill_step(
+            p, h, kv_cache, li, table_row))
+        return self._head_logits(cp, x), kv_cache
+
+    def apply_prefill_partial(self, params, kv_cache, suffix_row, full_row,
+                              tokens, prefix_len: int):
+        """Partial prefill: ``tokens`` ``[1, S_pad]`` are the prompt from
+        absolute position ``prefix_len`` on; positions index at
+        ``prefix_len + s``, clipped into the table for end padding.  ->
+        (logits ``[1, S_pad, V]`` fp32, kv_cache)."""
+        cp = self.precision.cast_to_compute(params)
+        x = self._embed(cp, tokens)
+        pos = cp[self.layers[1][0]]["pos"]
+        idx = torch.clamp(prefix_len + torch.arange(tokens.shape[1],
+                                                    device=x.device),
+                          0, pos.shape[0] - 1)
+        x = x + pos[idx].to(x.dtype)[None]
+        x = self._run(cp, x, lambda blk, p, h, li: blk.prefill_suffix_step(
+            p, h, kv_cache, li, suffix_row, full_row, prefix_len))
+        return self._head_logits(cp, x), kv_cache
+
+    def apply_decode(self, params, kv_cache, positions, tokens):
+        """One decode step for a fixed batch: ``tokens`` ``[B]`` (the token
+        AT ``positions``), ``positions`` ``[B]`` int32, 0-based.  Appends
+        each layer's K/V and attends over the cached context.  -> (logits
+        ``[B, V]`` fp32, kv_cache).  Inactive slots ride along with tables
+        of null blocks."""
+        cp = self.precision.cast_to_compute(params)
+        x = self._embed(cp, tokens)[:, None, :]
+        pos = cp[self.layers[1][0]]["pos"]
+        x = x + pos[positions.long()].to(x.dtype)[:, None, :]
+        x = self._run(cp, x, lambda blk, p, h, li: blk.decode_step(
+            p, h, kv_cache, li, positions))
+        return self._head_logits(cp, x[:, 0, :]), kv_cache

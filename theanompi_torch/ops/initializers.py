@@ -1,0 +1,50 @@
+"""Weight initializers on an explicit ``torch.Generator``.
+
+Counterparts of ``theanompi_tpu/ops/initializers.py``'s ``normal`` and
+``glorot_normal``: ``fn(generator, shape, dtype) -> tensor`` on the
+generator's device.  The bits differ from ``jax.random`` by design; tests
+that need the reference's weights convert them (:mod:`theanompi_torch.convert`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _fans(shape):
+    """(fan_in, fan_out) for dense ``[in, out]`` weights."""
+    if len(shape) < 1:
+        return 1, 1
+    if len(shape) == 1:
+        return shape[0], shape[0]
+    receptive = math.prod(shape[:-2]) if len(shape) > 2 else 1
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
+def _randn(gen: torch.Generator, shape, dtype):
+    return torch.randn(tuple(shape), generator=gen, dtype=dtype,
+                       device=gen.device)
+
+
+def zeros(gen, shape, dtype=torch.float32):
+    return torch.zeros(tuple(shape), dtype=dtype, device=gen.device)
+
+
+def ones(gen, shape, dtype=torch.float32):
+    return torch.ones(tuple(shape), dtype=dtype, device=gen.device)
+
+
+def normal(stddev=0.01, mean=0.0):
+    """Plain gaussian."""
+
+    def init(gen, shape, dtype=torch.float32):
+        return mean + stddev * _randn(gen, shape, dtype)
+
+    return init
+
+
+def glorot_normal(gen, shape, dtype=torch.float32):
+    fan_in, fan_out = _fans(shape)
+    return _randn(gen, shape, dtype) * math.sqrt(2.0 / (fan_in + fan_out))

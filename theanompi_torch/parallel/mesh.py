@@ -1,0 +1,63 @@
+"""Precision policy and the device rule.
+
+Counterpart of ``theanompi_tpu/parallel/mesh.py``'s ``Precision``/``FP32``/
+``BF16``.  The port runs one process per GPU, so there is no mesh here
+yet: process groups arrive with the training slice.
+
+The device rule every entry point follows: ``device=None`` means the
+card (``cuda``); with no CUDA available it raises rather than quietly
+running on the CPU.  Only an explicit ``device="cpu"`` (what the tests
+pass) runs on the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from theanompi_torch.tree import tree_map
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``None`` -> ``cuda`` (raises
+    ``RuntimeError`` when CUDA is unavailable); anything else as given,
+    with a CUDA request also checked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: theanompi_torch runs on the card unless "
+                "the caller asks for device='cpu'")
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is "
+                           f"unavailable")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class Precision:
+    """Mixed-precision policy: fp32 params, ``compute_dtype`` compute
+    (the model casts its logits up to fp32 at the head)."""
+
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    def cast_to_compute(self, tree):
+        """Cast every floating tensor leaf (LayerNorm params included) to
+        the compute dtype.  Non-tensor leaves — the int8
+        ``QuantizedTensor``, whose fp32 scales must stay fp32 — pass
+        through whole.  A leaf already in the compute dtype is returned
+        as is (no copy)."""
+        def cast(x):
+            if isinstance(x, torch.Tensor) and x.is_floating_point():
+                return x.to(self.compute_dtype)
+            return x
+
+        return tree_map(cast, tree)
+
+
+#: Full precision everywhere — CPU tests and numerical parity.
+FP32 = Precision(compute_dtype=torch.float32)
+#: The serving default on the card.
+BF16 = Precision()

@@ -1,0 +1,36 @@
+"""Serving path of the port: continuous-batching inference for
+``TransformerLM`` on the card.
+
+- :mod:`~theanompi_torch.serving.kv_cache` — paged KV cache (in-place
+  writes, reserved null block) and the refcounted block pool;
+- :mod:`~theanompi_torch.serving.engine` — prefill/decode steps, sampling,
+  int8 weights;
+- :mod:`~theanompi_torch.serving.scheduler` — admission, join/evict,
+  longest-first preemption, typed terminal states;
+- :mod:`~theanompi_torch.serving.prefix_cache` — radix prefix cache;
+- :mod:`~theanompi_torch.serving.quant` — int8 param-tree transform;
+- :mod:`~theanompi_torch.serving.cli` — ``python -m theanompi_torch.serving``.
+"""
+
+from theanompi_torch.serving.engine import InferenceEngine, sample_tokens
+from theanompi_torch.serving.kv_cache import BlockPool, PagedKVCache, blocks_for
+from theanompi_torch.serving.prefix_cache import PrefixCache
+from theanompi_torch.serving.quant import (
+    dequantize_tree,
+    is_quantized_tree,
+    quantize_tree,
+)
+from theanompi_torch.serving.scheduler import (
+    TERMINAL_STATES,
+    Request,
+    Scheduler,
+    run_open_loop,
+    serve_report,
+)
+
+__all__ = [
+    "BlockPool", "InferenceEngine", "PagedKVCache", "PrefixCache",
+    "Request", "Scheduler", "TERMINAL_STATES", "blocks_for",
+    "dequantize_tree", "is_quantized_tree", "quantize_tree",
+    "run_open_loop", "sample_tokens", "serve_report",
+]
