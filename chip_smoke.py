@@ -8,16 +8,19 @@ Run from the root of a checkout, with no arguments::
 Phases (any failure exits non-zero and prints no result line):
 
 1. **Device and build** — the card's name, power limit (``nvidia-smi``),
-   compute capability (must be 9.0), torch and CUDA versions; the three
-   CUDA kernels build from ``theanompi_torch/kernels/csrc`` with ``nvcc``.
+   compute capability (must be 9.0), torch and CUDA versions; the five
+   CUDA kernels (four sources) build from ``theanompi_torch/kernels/csrc``
+   with ``nvcc``, one process per source, all at once.
 2. **Each kernel against its plain version on the card**, at the serving
-   slice's shapes, with the tolerance stated per kernel; one line per
-   kernel and shape with ``kernel_ms`` (device time, from a CUDA graph of
-   the calls), ``call_ms`` (the same call eagerly, the wrapper's host cost
-   included), ``ref_ms`` (the plain version) and ``library_ms`` (one
-   PyTorch call computing the same function, timed here only: SDPA for
-   flash attention, dequantize + matmul for the int8 matmul, none for
-   paged decode).
+   and training slices' shapes, with the tolerance stated per kernel; one
+   line per kernel and shape with ``kernel_ms`` (device time, from a CUDA
+   graph of the calls), ``call_ms`` (the same call eagerly, the wrapper's
+   host cost included), ``ref_ms`` (the plain version) and ``library_ms``
+   (one PyTorch call computing the same function, timed here only: SDPA
+   and its backward for flash attention, dequantize + matmul for the int8
+   matmul, none for paged decode).  The flash backward (kernels 2 and 3)
+   has a second witness in fp32: ``FlashAttention``'s grads against
+   autograd of the blockwise path.
 3. **The serving path at full width**, through the CLI's ``serve`` (what
    ``python -m theanompi_torch.serving`` runs) — ``TransformerLM`` dim
    512, 8 heads, 8 layers, seq_len 2048, vocab 32768, max_batch 8,
@@ -31,10 +34,24 @@ Phases (any failure exits non-zero and prints no result line):
    the plain path, re-scoring the kernel path's own streams
    teacher-forced, must pick the same greedy token at >= 99 % (fp32) /
    >= 95 % (bf16) of positions.
+4. **The training path at full width**, through ``BSP(...).init(...)``
+   and ``.wait()`` (what ``python -m theanompi_torch.launcher`` runs) —
+   the same model at batch 16, dropout 0, the synthetic PTB stream,
+   1 epoch of 8 steps and 2 validation batches — in bf16 and fp32.  Each
+   step's loss must be finite, and the first batch's loss after the last
+   step below its loss at step 1; flash forward
+   must have launched ``8 layers x (8 steps + 2 validation batches)``
+   times and each backward kernel ``8 x 8`` (counts zeroed right before
+   the run and read right after).  Then one step at batch 2 through the
+   kernels and through the plain path (``attn_impl="blockwise"``, same
+   weights, same batch): loss, global grad norm and the params' update
+   must agree within the stated tolerance.  One further step of each run
+   is traced with ``torch.profiler``: device busy time against the step's
+   wall time, and the kernels that take most of it.
 
 Output: the ``nvidia-smi`` line, one line per check, the serve reports,
-then ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
-fp32 products run without TF32 throughout.
+the training lines, then ``{"kernels": [...]}`` and, last, ``{"ok": true,
+"device": {...}}``.  fp32 products run without TF32 throughout.
 """
 
 from __future__ import annotations
@@ -140,6 +157,7 @@ def check_flash(torch):
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [(b, t) for b in (1, 8)
              for t in (16, 128, 256, 512, 1024, 2048)]
+    cases.append((TRAIN_ATTN["b"], TRAIN_ATTN["t"]))  # the training shape
     # out, element by element (see within): fp32 sums run in another order
     # than the plain version's (rel = row = 2e-5); a bf16 output may round
     # one ulp apart (rel 2**-7), and a probability on a bf16 rounding edge
@@ -303,6 +321,164 @@ def check_int8(torch):
     return rows
 
 
+#: kernels 2 and 3 against their plain version, element by element (see
+#: within).  fp32: the sums over up to T terms run in another order and
+#: dp - delta cancels, so errors are held against the row's rms as well
+#: (rel = row = 1e-4).  bf16: ds and p round to bf16 inside the kernels and
+#: one on a rounding edge may go either way (the flash forward's row term,
+#: 2**-5); the outputs round once more (2**-7)
+BWD_TOL = {"bfloat16": (2 ** -7, 2 ** -5), "float32": (1e-4, 1e-4)}
+#: the training shape of kernels 2 and 3 (bf16, causal, head dim 64)
+TRAIN_ATTN = dict(b=16, t=2048, h=8, d=64)
+
+
+def _bwd_launchers(torch, q, k, v, out, lse, g, causal):
+    """Each backward kernel alone, called the way its wrapper calls it
+    (for timing; these calls bump no launch count).  The closures hold
+    every buffer whose pointer they pass."""
+    from theanompi_torch.kernels import stream_ptr
+    from theanompi_torch.ops.flash_attention import (
+        FLASH_BWD_DKV,
+        FLASH_BWD_DQ,
+        _delta,
+    )
+
+    b, t, h, d = q.shape
+    ins = (q, k, v, g, lse, _delta(out, g))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dt = 0 if q.dtype == torch.float32 else 1
+    tail = (b, t, h, d, int(causal), float(d ** -0.5))
+
+    def dq_call():
+        FLASH_BWD_DQ.call("flash_bwd_dq", "ipppppppiiiiifp", dt,
+                          *(x.data_ptr() for x in ins), dq.data_ptr(),
+                          *tail, stream_ptr(q))
+
+    def dkv_call():
+        FLASH_BWD_DKV.call("flash_bwd_dkv", "ippppppppiiiiifp", dt,
+                           *(x.data_ptr() for x in ins), dk.data_ptr(),
+                           dv.data_ptr(), *tail, stream_ptr(q))
+
+    return dq_call, dkv_call
+
+
+def check_flash_bwd(torch):
+    """Kernels 2 and 3 against their plain version at every listed shape;
+    times (each kernel alone, the wrapper, the plain version, the SDPA
+    backward) at the causal head-dim-64 shapes and the training shape.
+    -> (rows for flash_bwd_dq, rows for flash_bwd_dkv)."""
+    import torch.nn.functional as F
+
+    from theanompi_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_ref,
+    )
+
+    dq_rows, dkv_rows = [], []
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [(dtype, causal, b, d, t)
+             for dtype in (torch.bfloat16, torch.float32)
+             for causal in (True, False) for b in (1, 2)
+             for d in (32, 64, 128) for t in (128, 1040, 1024, 2048)]
+    cases += [(dtype, True, TRAIN_ATTN["b"], TRAIN_ATTN["d"], TRAIN_ATTN["t"])
+              for dtype in (torch.bfloat16, torch.float32)]
+    worst = {}
+    for dtype, causal, b, d, t in cases:
+        h = 8
+        dn = _dname(dtype)
+        q, k, v, g = (torch.randn(b, t, h, d, device="cuda", generator=gen)
+                      .to(dtype) for _ in range(4))
+        out, lse = flash_attention(q, k, v, causal)
+        got = flash_attention_bwd(q, k, v, out, lse, g, causal)
+        ref = flash_attention_bwd_ref(q, k, v, out, lse, g, causal)
+        torch.cuda.synchronize()
+        rel, row = BWD_TOL[dn]
+        errs = []
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            check(torch.isfinite(a.float()).all().item(),
+                  f"flash bwd {dn} B={b} T={t} D={d} causal={causal}: "
+                  f"non-finite {name}")
+            err, ratio = within(a, r, rel, row)
+            check(ratio <= 1, f"flash bwd {dn} B={b} T={t} D={d} "
+                  f"causal={causal}: {name} |out-ref|={err:.3g}, worst "
+                  f"error/limit {ratio:.3g} (limit {rel:.3g}|ref| + "
+                  f"{row:.3g} rms(row))")
+            errs.append((err, ratio))
+            worst[dn] = max(worst.get(dn, 0.0), ratio)
+        shape = (f"B={b} T={t} H={h} D={d} "
+                 f"{'causal' if causal else 'full'}")
+        if not (causal and d == 64 and t in (128, 1024, 2048)):
+            continue
+        dq_call, dkv_call = _bwd_launchers(torch, q, k, v, out, lse, g,
+                                           causal)
+        dq_ms = time_ms(dq_call, 10, graph=True)
+        dkv_ms = time_ms(dkv_call, 10, graph=True)
+        call_ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, g,
+                                                      causal), 10)
+        ref_ms = time_ms(lambda: flash_attention_bwd_ref(
+            q, k, v, out, lse, g, causal), 3)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                 is_causal=causal)
+        gt = g.transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), gt, retain_graph=True), 10)
+        elt = q.element_size()
+        n = b * t * h * d
+        pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+        rows_bytes = 2 * b * h * t * 4           # lse, delta
+        for kernel_rows, ms, n_out, n_mm, mine in (
+                (dq_rows, dq_ms, 1, 3, errs[:1]),
+                (dkv_rows, dkv_ms, 2, 4, errs[1:])):
+            err, ratio = max(e[0] for e in mine), max(e[1] for e in mine)
+            bms, by = bound_ms((4 + n_out) * n * elt + rows_bytes,
+                               2 * n_mm * d * pairs, dn)
+            kernel_rows.append(dict(
+                dtype=dn, shape=shape, max_abs_err=err, ratio=ratio,
+                tol=f"{rel:.3g}|ref|+{row:.3g}rms", ms=ms, call_ms=call_ms,
+                plain_ms=ref_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by))
+    print(f"flash bwd: worst error/limit bf16 {worst['bfloat16']:.3g} "
+          f"(limit {BWD_TOL['bfloat16'][0]:.3g}|ref| + "
+          f"{BWD_TOL['bfloat16'][1]:.3g} rms), fp32 {worst['float32']:.3g} "
+          f"(limit {BWD_TOL['float32'][0]:.3g}|ref| + "
+          f"{BWD_TOL['float32'][1]:.3g} rms); call_ms and ref_ms cover "
+          f"both kernels, library_ms is SDPA's backward", flush=True)
+    return dq_rows, dkv_rows
+
+
+def check_flash_autograd(torch):
+    """The second witness, fp32: ``FlashAttention``'s grads against
+    autograd of the blockwise path (a different algorithm: the full fp32
+    softmax).  Held at rtol 1e-4 with an absolute floor at 1e-5 of the
+    largest gradient (rows whose true gradient is 0 come out at ~1e-8
+    from dp - delta)."""
+    from theanompi_torch.ops.attention import blockwise_attention
+    from theanompi_torch.ops.flash_attention import FlashAttention
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for causal in (True, False):
+        q, k, v, g = (torch.randn(2, 1024, 8, 64, device="cuda",
+                                  generator=gen) for _ in range(4))
+        a = [x.clone().requires_grad_() for x in (q, k, v)]
+        got = torch.autograd.grad(
+            (FlashAttention.apply(*a, causal)[0] * g).sum(), a)
+        b = [x.clone().requires_grad_() for x in (q, k, v)]
+        ref = torch.autograd.grad(
+            (blockwise_attention(*b, causal) * g).sum(), b)
+        for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+            floor = 1e-5 * float(r.abs().max())
+            err = float((x - r).abs().max())
+            ok = bool(torch.allclose(x, r, rtol=1e-4, atol=floor))
+            print(f"check flash autograd fp32 B=2 T=1024 H=8 D=64 "
+                  f"causal={causal} {name}: max|flash-blockwise|={err:.3g} "
+                  f"(rtol 1e-4, atol {floor:.3g})", flush=True)
+            check(ok, f"FlashAttention {name} differs from blockwise "
+                  f"autograd by {err:.3g}")
+
+
 def print_rows(name, rows):
     for r in rows:
         lib = ("none" if r["library_ms"] is None
@@ -456,6 +632,195 @@ def serve_run(torch, precision, quant, smi, kernels):
     return launches, report
 
 
+# -- phase 4: the training path ------------------------------------------------
+
+#: ``bench.py:108-134``'s transformer: full width, batch 16, dropout 0, the
+#: synthetic PTB stream (procedural-sparse bigram at V > 4096) with
+#: n_train = 8 and n_val = 2 batches.  The loss is held on the first batch
+#: itself, before step 1 and after step 8, since a loss of another batch
+#: differs by more than 8 steps move it at initialization.  lr 0.05 (the
+#: default config's is 1e-3; momentum 0.9 and the 1.0 global-norm clip
+#: are the default's) gives that check a margin: the first-order fall of
+#: the loss grows with lr
+TRAIN_CFG = {"dim": 512, "heads": 8, "n_layers": 8, "seq_len": 2048,
+             "vocab": 32768, "dropout": 0.0, "batch_size": 16,
+             "n_train": 128, "n_val": 32, "n_epochs": 1, "lr": 0.05}
+TRAIN_STEPS = TRAIN_CFG["n_train"] // TRAIN_CFG["batch_size"]
+VAL_BATCHES = TRAIN_CFG["n_val"] // TRAIN_CFG["batch_size"]
+#: the plain-path comparison (kernel path vs attn_impl="blockwise"): the
+#: blockwise path keeps [B, H, T, T] fp32 scores for autograd in every
+#: layer, so it runs at batch 2
+PARITY_BATCH = 2
+#: (loss, grad norm, update) relative tolerances of the kernel path against
+#: the plain path.  fp32: the two differ only in the order of fp32 sums
+#: (and the embedding backward's atomics).  bf16: the kernels round each
+#: probability to bf16 where the blockwise path keeps an fp32 softmax, so
+#: attention outputs differ by ~2**-8 relative and the differences grow
+#: through 8 layers and the backward
+PARITY_TOL = {"fp32": (1e-5, 1e-4, 1e-4), "bf16": (1e-2, 5e-2, 1e-1)}
+
+
+def train_flops(cfg):
+    """``bench.py:212-221``'s strict analytic model FLOPs of one training
+    step (3x the forward, no rematerialization counted)."""
+    t, d, heads, layers = (cfg["seq_len"], cfg["dim"], cfg["heads"],
+                           cfg["n_layers"])
+    bs, v = cfg["batch_size"], cfg["vocab"]
+    n_tok = bs * t
+    trunk = 6.0 * n_tok * layers * 12 * d * d
+    attn = 3.0 * layers * 0.5 * 4.0 * bs * heads * t * t * (d // heads)
+    head = 6.0 * n_tok * d * v
+    return trunk + attn + head
+
+
+def train_run(torch, precision, smi, kernels):
+    """One full-width training run through ``BSP(...).init`` and
+    ``.wait()``, with every kernel's launch count zeroed just before it
+    and read just after.  -> (launches, per-step losses, step_ms p50)."""
+    import statistics
+
+    from theanompi_torch import BSP
+
+    from theanompi_torch.utils.helper_funcs import to_device
+
+    cfg = {**TRAIN_CFG, "precision": precision}
+    rule = BSP({"print_freq": 1, "seed": 0}).init(
+        devices=1, modelfile="theanompi_torch.models.transformer_lm",
+        modelclass="TransformerLM", model_config=cfg)
+    tr = rule.trainer
+    check(tr.model.fused_loss_enabled(), "fused loss is off")
+    for k in kernels:
+        k.launches = 0
+    rec = rule.wait()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    losses = rec.train_history["cost"]
+    first = next(iter(tr.model.data.train_batches(tr.global_batch, 0,
+                                                  seed=tr.seed)))
+    with torch.no_grad():
+        after, _ = tr.model.loss_fn(tr.params, to_device(first, tr.device),
+                                    None, train=False)
+    after = float(after)
+    steps_s = [w + c for w, c in zip(rec.time_history["wait"],
+                                     rec.time_history["calc"])]
+    p50 = statistics.median(steps_s)
+    tokens = cfg["batch_size"] * cfg["seq_len"]
+    util = train_flops(cfg) / p50 / PEAK_FLOPS["bfloat16"]
+    print(f"train[{precision}] {smi}: losses={losses} "
+          f"step_ms={[round(x * 1e3, 3) for x in steps_s]} "
+          f"step_ms_p50={p50 * 1e3:.3f} tokens/s={tokens / p50:.1f} "
+          f"analytic-FLOPs utilization (estimate, vs 989 TFLOP/s bf16)="
+          f"{util:.4f} val={ {k: v[-1] for k, v in rec.val_history.items()} } "
+          f"first-batch loss before step 1 {losses[0]:.7g}, after step "
+          f"{len(losses)} {after:.7g} launches={launches}", flush=True)
+    want = {"flash_fwd": 8 * (TRAIN_STEPS + VAL_BATCHES),
+            "flash_bwd_dq": 8 * TRAIN_STEPS, "flash_bwd_dkv": 8 * TRAIN_STEPS}
+    for name, n in want.items():
+        check(launches[name] == n, f"train[{precision}]: {name} launched "
+              f"{launches[name]} times, expected {n}")
+    check(len(losses) == TRAIN_STEPS and all(
+        x == x and abs(x) != float("inf") for x in losses),
+        f"train[{precision}]: losses {losses}")
+    check(after == after and after < losses[0], f"train[{precision}]: the "
+          f"first batch's loss did not fall ({losses[0]} -> {after})")
+    train_profile(torch, tr, first, cfg["lr"], precision)
+    return launches, losses, p50
+
+
+def train_profile(torch, tr, batch, lr, precision):
+    """One more step of the trained model under ``torch.profiler``: the
+    device's busy time against the step's wall time (host clock, ending in
+    a sync), and the kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tr.train_iter(batch, lr)                      # warm, outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train_iter(batch, lr)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: an operator's own event also carries the device time
+    # of the kernels it launched, which would count them twice
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if not events:
+        print(f"profile[{precision}]: the profiler saw no device time "
+              f"(device busy share not measured)", flush=True)
+        return
+    groups = {}
+    for e in events:
+        n = e.key
+        g = ("flash_fwd" if "flash_fwd_kernel" in n else
+             "flash_bwd_dq" if "flash_bwd_dq_kernel" in n else
+             "flash_bwd_dkv" if "flash_bwd_dkv_kernel" in n else
+             "gemm" if any(w in n.lower() for w in ("gemm", "xmma",
+                                                      "cutlass")) else
+             "other")
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    print(f"profile[{precision}] one step: wall {wall_ms:.3f} ms, device "
+          f"busy {busy_ms:.3f} ms (idle share "
+          f"{max(0.0, 1 - busy_ms / wall_ms):.3f}); by group (ms): "
+          + ", ".join(f"{k}={v:.3f}" for k, v in sorted(
+              groups.items(), key=lambda kv: -kv[1])), flush=True)
+    for e in top:
+        print(f"profile[{precision}]   {e.self_device_time_total / 1e3:9.3f}"
+              f" ms x{e.count:<4d} {e.key[:110]}", flush=True)
+
+
+def train_parity(torch, precision):
+    """One step at batch 2 through the kernel path and through the plain
+    path, same weights, same batch: loss, global grad norm and the
+    params' update."""
+    from theanompi_torch import BSP
+    from theanompi_torch.ops.opt import global_sq_norm
+    from theanompi_torch.parallel.trainer import loss_and_grads
+    from theanompi_torch.tree import tree_leaves_with_path
+    from theanompi_torch.utils.helper_funcs import to_device
+
+    cfg = {**TRAIN_CFG, "precision": precision, "batch_size": PARITY_BATCH,
+           "n_train": 4 * PARITY_BATCH, "n_val": PARITY_BATCH}
+    out = {}
+    for impl in ("pallas", "blockwise"):
+        rule = BSP({"seed": 0, "verbose": False}).init(
+            devices=1, model_config={**cfg, "attn_impl": impl})
+        tr = rule.trainer
+        batch = next(iter(tr.model.data.train_batches(PARITY_BATCH, 0)))
+        metrics, grads = loss_and_grads(tr.model, tr.params,
+                                        to_device(batch, tr.device), None)
+        before = tr.params
+        tr.train_iter(batch, cfg["lr"])
+        upd = [(a - b).flatten() for (_, a), (_, b) in zip(
+            tree_leaves_with_path(tr.params), tree_leaves_with_path(before))]
+        out[impl] = (float(metrics["cost"]),
+                     float(torch.sqrt(global_sq_norm(grads))),
+                     torch.cat(upd), before)
+        del rule, tr, grads
+        torch.cuda.empty_cache()
+    (lk, gk, uk, pk), (lp, gp, up, pp) = out["pallas"], out["blockwise"]
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        tree_leaves_with_path(pk), tree_leaves_with_path(pp)))
+    check(same, f"parity[{precision}]: the two paths start from different "
+          f"weights")
+    t_loss, t_norm, t_upd = PARITY_TOL[precision]
+    d_loss = abs(lk - lp) / abs(lp)
+    d_norm = abs(gk - gp) / gp
+    d_upd = float((uk - up).norm() / up.norm())
+    print(f"train parity[{precision}] batch {PARITY_BATCH}: loss kernel "
+          f"{lk:.7g} plain {lp:.7g} (rel {d_loss:.3g}, tol {t_loss:g}); "
+          f"grad norm kernel {gk:.7g} plain {gp:.7g} (rel {d_norm:.3g}, tol "
+          f"{t_norm:g}); update |kernel-plain|/|plain| {d_upd:.3g} (tol "
+          f"{t_upd:g})", flush=True)
+    check(d_loss <= t_loss and d_norm <= t_norm and d_upd <= t_upd,
+          f"train parity[{precision}]: kernel path differs from the plain "
+          f"path")
+
+
 def main() -> int:
     import torch
 
@@ -474,6 +839,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "fp32 matmuls would run in TF32")
 
     # -- phase 1 -----------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -502,8 +869,10 @@ def main() -> int:
     checks = {"flash_fwd": check_flash(torch),
               "paged_decode": check_paged(torch),
               "int8_matmul": check_int8(torch)}
+    checks["flash_bwd_dq"], checks["flash_bwd_dkv"] = check_flash_bwd(torch)
     for k, rows in checks.items():
         print_rows(k, rows)
+    check_flash_autograd(torch)
 
     # -- phase 3 -----------------------------------------------------------
     runs = {}
@@ -520,10 +889,34 @@ def main() -> int:
           + ", ".join(f"{k}={v / served:.3f}"
                       for k, v in main_launches.items()), flush=True)
 
+    # -- phase 4 -----------------------------------------------------------
+    trains = {p: train_run(torch, p, smi, K.KERNELS)
+              for p in ("bf16", "fp32")}
+    for p in ("fp32", "bf16"):
+        train_parity(torch, p)
+    train_launches = trains["bf16"][0]
+    print(f"launches per training step (bf16, {TRAIN_STEPS} steps + "
+          f"{VAL_BATCHES} validation batches): "
+          + ", ".join(f"{k}={train_launches[k] / TRAIN_STEPS:g}"
+                      for k in ("flash_fwd", "flash_bwd_dq",
+                                "flash_bwd_dkv")), flush=True)
+    # the serving slice's kernels report their serve run; the flash
+    # kernels the training run, which launches all three
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        main_launches[k] = train_launches[k]
+    by_path = {k.name: {"serve_bf16": runs[("bf16", False)][0][k.name],
+                        "serve_bf16_int8": runs[("bf16", True)][0][k.name],
+                        "train_bf16": train_launches[k.name]}
+               for k in K.KERNELS}
+
     # one representative main-path shape per kernel for the summary line
+    t_shape = (f"B={TRAIN_ATTN['b']} T={TRAIN_ATTN['t']} "
+               f"H={TRAIN_ATTN['h']} D={TRAIN_ATTN['d']} causal")
     rep = {"flash_fwd": ("bfloat16", "B=1 T=1024"),
            "paged_decode": ("bfloat16", "B=8"),
-           "int8_matmul": ("bfloat16", "M=8 [512,32768]")}
+           "int8_matmul": ("bfloat16", "M=8 [512,32768]"),
+           "flash_bwd_dq": ("bfloat16", t_shape),
+           "flash_bwd_dkv": ("bfloat16", t_shape)}
     summary = []
     for k in K.KERNELS:
         dt, key = rep[k.name]
@@ -533,6 +926,7 @@ def main() -> int:
             "name": k.name, "route": "cuda",
             "source": f"theanompi_torch/kernels/csrc/{k.source}",
             "replaces": k.replaces, "launches": main_launches[k.name],
+            "launches_by_path": by_path[k.name],
             "shape": f"{dt} {row['shape']}",
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],

@@ -6,12 +6,13 @@ conftest is not needed)::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-The serving slice's own shapes are held in ``chip_smoke.py``; these cover
-the kernels' other admitted shapes: head dims 32/128, non-causal and
-ragged T for flash attention, block sizes 8/32 for paged decode, narrow
-bands, many rows and the unsplit-K path for the int8 matmul; and the
-engine's ``decode_kernel="auto"`` raising where a kernel refuses the
-geometry, since on the card ``auto`` never falls back to a plain version.
+The serving slice's own shapes are held in ``chip_smoke.py``; these
+cover the kernels' other admitted shapes: head dims 32/128, non-causal and
+ragged T for flash attention forward, block sizes 8/32 for paged decode,
+narrow bands, many rows and the unsplit-K path for the int8 matmul; and
+the engine's ``decode_kernel="auto"`` raising where a kernel refuses the
+geometry, since on the card nothing falls back to a plain version.  The
+flash attention backward kernels are in ``test_torch_cuda_flash_bwd.py``.
 """
 
 import numpy as np

@@ -1,11 +1,12 @@
-"""The plain versions of the port's three kernels against the reference.
+"""The plain versions of the port's five kernels against the reference.
 
-Each kernel of the PyTorch/CUDA port (flash attention forward, paged
-decode attention, int8 weight matmul) has a plain PyTorch version beside
-it, which a CPU tensor runs and ``chip_smoke.py`` holds the CUDA kernel
+Each kernel of the PyTorch/CUDA port (flash attention forward and its two
+backward kernels, paged decode attention, int8 weight matmul) has a plain
+PyTorch version beside it, which a CPU tensor runs and ``chip_smoke.py`` holds the CUDA kernel
 against on the card.  Here, on the CPU, each plain version is held against
 the JAX package's own functions — the Pallas kernels in interpret mode and
-their pure-JAX fallbacks — on the same numpy inputs from a seed.
+their pure-JAX fallbacks — on the same numpy inputs from a seed.  The two
+backward kernels' plain version is held in ``test_torch_flash_bwd.py``.
 
 Tolerance: rtol 1e-5 / atol 1e-6 in fp32 unless a reason is written.
 """
@@ -101,6 +102,8 @@ def test_flash_wrapper_on_cpu_is_the_plain_version_and_gate():
     assert ob.dtype == torch.bfloat16 and lb.dtype == torch.float32
     np.testing.assert_allclose(ob.float().numpy(), b[0].numpy(), atol=5e-2)
 
+
+# -- kernels 2 and 3 (flash attention backward): test_torch_flash_bwd.py ------
 
 # -- kernel 4: paged decode attention -----------------------------------------
 

@@ -1,12 +1,14 @@
 """The port's two rules, as tests: no JAX at run time, and the card by
 default.
 
-- a fresh interpreter imports the port's serving stack and
-  ``chip_smoke.py`` (as a module) without ``jax`` or ``theanompi_tpu``
-  ever entering ``sys.modules``;
+- a fresh interpreter imports the port's serving and training stacks
+  (the BSP rule, the launcher, the losses) and ``chip_smoke.py`` (as a
+  module) without ``jax`` or ``theanompi_tpu`` ever entering
+  ``sys.modules``;
 - no file of ``theanompi_torch/`` (nor ``chip_smoke.py``) imports either;
 - entry points called without ``device`` on a machine with no CUDA raise
-  instead of running on the CPU;
+  instead of running on the CPU (the launcher exits non-zero), and the
+  launcher's unported flags exit 78;
 - kernel modules import, and their wrappers run on CPU tensors, without
   ``nvcc``: the build happens at the first launch on the card.
 """
@@ -40,6 +42,9 @@ def test_import_wall_in_a_fresh_interpreter():
         "import json, sys\n"
         "import theanompi_torch.serving, theanompi_torch.serving.cli\n"
         "import theanompi_torch.convert, theanompi_torch.kernels\n"
+        "import theanompi_torch.parallel.bsp, theanompi_torch.launcher\n"
+        "import theanompi_torch.ops.losses\n"
+        "from theanompi_torch import BSP\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{_FORBIDDEN!r})\n"
@@ -94,19 +99,63 @@ def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
     assert main(["--set", "dim=16", "--set", "heads=2", "--set",
                  "n_layers=1", "--set", "seq_len=16", "--set",
                  "vocab=12"]) == 70
+    # training: the BSP rule and the launcher refuse too, never train
+    from theanompi_torch import BSP
+    from theanompi_torch.launcher import main as launch
+
+    tiny = {"dim": 16, "heads": 2, "n_layers": 1, "seq_len": 16,
+            "vocab": 12, "n_train": 4, "n_val": 2, "batch_size": 2}
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        BSP().init(devices=1, model_config=tiny)
+    argv = [a for k, v in tiny.items() for a in ("--set", f"{k}={v}")]
+    assert launch(argv) == 70
+
+
+@pytest.mark.parametrize("flags", [
+    ["--checkpoint-dir", "ck"], ["--telemetry-dir", "tel"], ["--resume"],
+    ["--supervise"], ["--devices", "2"], ["--rule", "EASGD"],
+    ["--config-json", "c.json"], ["--sentinel", "abort"]])
+def test_launcher_unported_flags_exit_78(flags, capsys):
+    from theanompi_torch.launcher import main as launch
+
+    assert launch(["--device", "cpu", *flags]) == 78
+    err = capsys.readouterr().err
+    assert err.startswith("tmlauncher: error: config:")
+    assert "not yet ported" in err
+
+
+def test_launcher_trains_on_cpu_when_asked(capsys):
+    from theanompi_torch.launcher import main as launch
+
+    argv = ["--device", "cpu", "--rule-set", "print_freq=2"]
+    for k, v in {"dim": 16, "heads": 2, "n_layers": 1, "seq_len": 16,
+                 "vocab": 32, "n_train": 8, "n_val": 4, "batch_size": 4,
+                 "n_epochs": 1, "precision": "fp32"}.items():
+        argv += ["--set", f"{k}={v!r}"]
+    assert launch(argv) == 0
+    out = capsys.readouterr().out
+    assert "iter 2:" in out and "tmlauncher: done. final val:" in out
+    # an unknown rule key of the reference's is refused, a config error
+    assert launch(argv + ["--rule-set", "checkpoint_dir='x'"]) == 78
 
 
 def test_kernel_modules_build_lazily():
     import theanompi_torch.kernels as K
-    from theanompi_torch.ops.flash_attention import FLASH_FWD
+    from theanompi_torch.ops.flash_attention import (
+        FLASH_BWD_DKV,
+        FLASH_BWD_DQ,
+        FLASH_FWD,
+    )
     from theanompi_torch.ops.paged_attention import PAGED_DECODE
     from theanompi_torch.ops.quant import INT8_MATMUL
     from theanompi_torch.ops import quant
     from theanompi_torch.serving.quant import quantize_tree
 
-    assert {k.name for k in K.KERNELS} == {"flash_fwd", "paged_decode",
-                                           "int8_matmul"}
-    for k in (FLASH_FWD, PAGED_DECODE, INT8_MATMUL):
+    assert {k.name for k in K.KERNELS} == {
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode",
+        "int8_matmul"}
+    for k in (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKV, PAGED_DECODE,
+              INT8_MATMUL):
         assert os.path.exists(os.path.join(K.CSRC, k.source))
     before = {k.name: k.launches for k in K.KERNELS}
     # CPU tensors take the plain versions: nothing builds, nothing counts

@@ -5,7 +5,9 @@ slices in PyTorch for an NVIDIA H100, with every Pallas kernel on a
 ported path replaced by a CUDA C++ kernel written for Hopper (sm_90a)
 under :mod:`theanompi_torch.kernels`.
 
-Slice 1 serves the dense ``TransformerLM`` end to end:
+Slice 1 serves the dense ``TransformerLM`` end to end; slice 2 trains it
+through the BSP rule on one card (:class:`BSP`, ``python -m
+theanompi_torch.launcher``):
 
 - :mod:`theanompi_torch.parallel.mesh` — ``Precision`` policies and the
   device rule (``resolve_device``);
@@ -13,7 +15,12 @@ Slice 1 serves the dense ``TransformerLM`` end to end:
   ``Embedding``, the int8 weight format and matmul (kernel 5), flash
   attention forward (kernel 1), paged decode attention (kernel 4) and the
   attention layer;
-- :mod:`theanompi_torch.models.transformer_lm` — the model's serving path;
+- :mod:`theanompi_torch.models.transformer_lm` — the model's training and
+  serving paths, on :mod:`theanompi_torch.models.lstm`'s ``PTBData``;
+- :mod:`theanompi_torch.ops.losses`, :mod:`theanompi_torch.ops.opt` — the
+  fused chunked LM cross entropy, SGD;
+- :mod:`theanompi_torch.parallel.bsp` — the BSP rule and its trainer, and
+  :mod:`theanompi_torch.launcher`, the port's ``tmlauncher``;
 - :mod:`theanompi_torch.serving` — paged KV cache, engine, prefix cache,
   continuous-batching scheduler and the ``python -m
   theanompi_torch.serving`` CLI;
@@ -23,3 +30,13 @@ Slice 1 serves the dense ``TransformerLM`` end to end:
 Importing the package imports neither JAX nor anything that builds a
 kernel: the CUDA sources compile at first use.
 """
+
+
+def __getattr__(name):
+    # ``from theanompi_torch import BSP``, imported on first use
+    if name == "BSP":
+        from theanompi_torch.parallel.bsp import BSP
+
+        return BSP
+    raise AttributeError(f"module 'theanompi_torch' has no attribute "
+                         f"{name!r}")

@@ -1,1 +1,2 @@
-"""Models of the port (slice 1: the dense ``TransformerLM`` serving path)."""
+"""Models of the port: the dense ``TransformerLM`` (training and serving)
+and its PTB-style data."""

@@ -1,0 +1,125 @@
+"""Dataset protocol, stable seed derivation, the synthetic token stream.
+
+Counterpart of ``theanompi_tpu/models/data/base.py`` (``derive_seed`` :27,
+``Dataset`` :149, ``SyntheticSequenceDataset`` :266), numpy only, so the
+same seed gives the reference's arrays bit for bit.  Iterators yield
+**global** batches as numpy dicts ``{"x": [B, ...], "y": [B, ...]}`` with
+constant shapes; ragged final batches are dropped.  The image datasets,
+the read-retry plane and the prefetcher come with later slices.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+
+
+def derive_seed(*parts) -> int:
+    """A 31-bit numpy seed from structured parts, stable across processes
+    and interpreter restarts: sha256 of the parts' ``repr`` joined by an
+    unambiguous separator (never ``hash``, which depends on
+    ``PYTHONHASHSEED``)."""
+    text = "\x1f".join(repr(p) for p in parts)
+    digest = hashlib.sha256(text.encode("utf-8")).digest()
+    return int.from_bytes(digest[:8], "little") % (2**31)
+
+
+class Dataset:
+    """Duck-typed dataset: ``n_train``/``n_val`` counts and batch
+    iterators.  ``train_batches(batch_size, epoch, seed, start_batch)``
+    must give, from cursor ``start_batch`` on, exactly the batches an
+    uninterrupted epoch would (randomness keyed on ``derive_seed(...,
+    epoch)``).  ``state``/``set_state`` carry any position the (epoch,
+    cursor) pair does not determine; the datasets here have none."""
+
+    n_train: int
+    n_val: int
+    sample_shape: tuple
+    n_classes: int
+
+    def n_train_batches(self, batch_size: int) -> int:
+        return self.n_train // batch_size
+
+    def n_val_batches(self, batch_size: int) -> int:
+        return self.n_val // batch_size
+
+    def train_batches(self, batch_size: int, epoch: int, seed: int = 0,
+                      start_batch: int = 0):
+        raise NotImplementedError
+
+    def val_batches(self, batch_size: int):
+        raise NotImplementedError
+
+    def state(self) -> dict:
+        return {}
+
+    def set_state(self, state: dict) -> None:
+        """Restore :meth:`state` output (no-op for stateless datasets)."""
+
+    def cleanup(self) -> None:
+        pass
+
+
+class SyntheticSequenceDataset(Dataset):
+    """Synthetic token streams for LM models (PTB stand-in): sequences
+    follow a fixed random bigram table, so there is structure to learn.
+    Up to ``dense_vocab_limit`` the table is dense; above it (the 32k-vocab
+    LM benches) every token has 32 successors at ``(a*cur + c + j*j) % V``
+    drawn from one shared peaked categorical over ``j``."""
+
+    def __init__(self, n_train=512, n_val=128, seq_len=32, vocab=64, seed=0,
+                 dense_vocab_limit=4096):
+        rng = np.random.RandomState(seed)
+        self.vocab = vocab
+        self.n_classes = vocab
+        self.seq_len = seq_len
+        self.sample_shape = (seq_len,)
+        if vocab <= dense_vocab_limit:
+            logits = rng.randn(vocab, vocab) * 2.0
+            probs = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+            self._probs = probs
+
+            def gen(n, r):
+                seqs = np.zeros((n, seq_len + 1), np.int32)
+                seqs[:, 0] = r.randint(0, vocab, n)
+                for t in range(seq_len):
+                    cur = seqs[:, t]
+                    u = r.rand(n, 1)
+                    cdf = probs[cur].cumsum(1)
+                    # clamp: the float cumsum can top out below 1.0
+                    seqs[:, t + 1] = np.minimum((u > cdf).sum(1), vocab - 1)
+                return seqs
+        else:
+            s_succ = 32
+            a = 2 * rng.randint(1, vocab // 2) + 1  # odd -> bijective map
+            c = rng.randint(vocab)
+            wl = np.sort(rng.randn(s_succ) * 2.0)[::-1]
+            w = np.exp(wl) / np.exp(wl).sum()
+            cdf = w.cumsum()
+
+            def gen(n, r):
+                seqs = np.zeros((n, seq_len + 1), np.int32)
+                seqs[:, 0] = r.randint(0, vocab, n)
+                j2 = np.arange(s_succ, dtype=np.int64) ** 2
+                for t in range(seq_len):
+                    cur = seqs[:, t].astype(np.int64)
+                    j = np.minimum((r.rand(n, 1) > cdf).sum(1), s_succ - 1)
+                    seqs[:, t + 1] = (a * cur + c + j2[j]) % vocab
+                return seqs
+
+        self._train = gen(n_train, np.random.RandomState(seed + 1))
+        self._val = gen(n_val, np.random.RandomState(seed + 2))
+        self.n_train, self.n_val = n_train, n_val
+
+    def train_batches(self, batch_size, epoch, seed=0, start_batch=0):
+        rng = np.random.RandomState(derive_seed("shuffle", seed, epoch))
+        order = rng.permutation(self.n_train)
+        for i in range(int(start_batch), self.n_train // batch_size):
+            s = self._train[order[i * batch_size: (i + 1) * batch_size]]
+            yield {"x": s[:, :-1], "y": s[:, 1:]}
+
+    def val_batches(self, batch_size):
+        for i in range(self.n_val // batch_size):
+            s = self._val[i * batch_size: (i + 1) * batch_size]
+            yield {"x": s[:, :-1], "y": s[:, 1:]}

@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM: the dense model's serving path.
+"""Decoder-only transformer LM: the dense model's training and serving
+paths.
 
 Counterpart of ``theanompi_tpu/models/transformer_lm.py`` (``_Block`` and
 ``TransformerLM``), with the reference's param tree and key names —
@@ -6,13 +7,19 @@ Counterpart of ``theanompi_tpu/models/transformer_lm.py`` (``_Block`` and
 ln2, up, down}``, the final ``NN_layernorm`` and ``head`` — so a converted
 reference tree (:mod:`theanompi_torch.convert`) plugs straight in.
 
-Entry points for serving: ``apply_logits`` (full forward, the batched
-reference), ``apply_prefill`` (one prompt, K/V into the paged cache),
+Training: ``loss_fn`` runs the trunk (``apply_trunk``: embedding,
+positions, the blocks with dropout, the final LN) and the head outside it:
+the fused chunked cross entropy (``ops.losses.fused_lm_xent``) at vocab
+>= 8192, the plain head and fp32 softmax cross entropy below.  Data is
+``PTBData`` (the synthetic bigram stream unless real PTB is given).
+
+Serving: ``apply_logits`` (full forward, the batched reference),
+``apply_prefill`` (one prompt, K/V into the paged cache),
 ``apply_prefill_partial`` (an uncached suffix over a cached prefix) and
 ``apply_decode`` (one token for every slot of a fixed batch).  The K/V
 writes go into the cache's pools in place; each method returns the same
-cache object.  The MoE and pipeline variants and the training loss come
-with later slices.
+cache object.  The MoE and pipeline variants and the token stream dataset
+come with later slices.
 """
 
 from __future__ import annotations
@@ -22,18 +29,34 @@ import torch.nn.functional as F
 from torch import nn
 
 from theanompi_torch.models.contract import Model
+from theanompi_torch.models.lstm import PTBData, ptb_path
 from theanompi_torch.ops import initializers as init_lib
 from theanompi_torch.ops import quant
 from theanompi_torch.ops.attention import MultiHeadAttention, PositionEmbedding
-from theanompi_torch.ops.layers import Dense, Embedding, Layer, LayerNorm
+from theanompi_torch.ops.layers import (
+    Dense,
+    Dropout,
+    Embedding,
+    Layer,
+    LayerNorm,
+)
+from theanompi_torch.ops.losses import (
+    fused_lm_xent,
+    softmax_cross_entropy,
+    top_k_error,
+)
+from theanompi_torch.ops.opt import global_sq_norm
 
 
 class _Block(Layer):
-    """Pre-norm transformer block: LN -> MHA -> residual, LN -> MLP ->
-    residual (tanh-approximate GELU, the reference's ``jax.nn.gelu``)."""
+    """Pre-norm transformer block: LN -> MHA -> dropout -> residual, LN ->
+    MLP -> dropout -> residual (tanh-approximate GELU, the reference's
+    ``jax.nn.gelu``; dropout only in training)."""
 
-    def __init__(self, dim: int, heads: int, attn_impl: str = "auto"):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0,
+                 attn_impl: str = "auto"):
         super().__init__()
+        self.drop = Dropout(dropout)
         w02 = init_lib.normal(0.02)
         self.subs = nn.ModuleDict({
             "ln1": LayerNorm(),
@@ -67,10 +90,12 @@ class _Block(Layer):
             params["attn"], ctx.reshape(x.shape[0], x.shape[1], -1))
         return x + self._ffn(params, s["ln2"](params["ln2"], x))
 
-    def forward(self, params, x):
+    def forward(self, params, x, train: bool = False, gen=None):
         s = self.subs
-        x = x + s["attn"](params["attn"], s["ln1"](params["ln1"], x))
-        return x + self._ffn(params, s["ln2"](params["ln2"], x))
+        h = s["attn"](params["attn"], s["ln1"](params["ln1"], x))
+        x = x + self.drop(None, h, train, gen)
+        h = self._ffn(params, s["ln2"](params["ln2"], x))
+        return x + self.drop(None, h, train, gen)
 
     def prefill_step(self, params, x, cache, layer_idx, table_row):
         """Full-prompt forward of one block: writes this layer's K/V into
@@ -110,34 +135,60 @@ class _Block(Layer):
 
 class TransformerLM(Model):
     default_config = {
+        "batch_size": 8,
+        "n_epochs": 10,
+        "lr": 1e-3,
+        "momentum": 0.9,
+        "grad_clip": 1.0,
         "seq_len": 256,
         "dim": 256,
         "heads": 8,
         "n_layers": 4,
         "vocab": 256,
-        # serving runs with dropout off; the key is kept so reference
-        # configs pass through unchanged
-        "dropout": 0.0,
-        # "auto": kernel 1 on the card (its wrapper raises on a shape it
-        # does not take), blockwise elsewhere; "pallas"/"blockwise" force
-        # a path (the reference's names)
+        # training only: serving runs train=False
+        "dropout": 0.1,
+        # "auto": kernels 1-3 on the card (their wrappers raise on a shape
+        # they do not take), blockwise elsewhere; "pallas"/"blockwise"
+        # force a path (the reference's names)
         "attn_impl": "auto",
+        # "auto": the fused chunked loss at vocab >= 8192
+        "fused_loss": "auto",
+        # "ptb": the chopped PTB-style set (synthetic unless data_path /
+        # $PTB_PATH names real PTB); the token stream is not ported yet
+        "dataset": "ptb",
     }
 
     def __init__(self, config=None):
         super().__init__(config)
         cfg = self.config
+        if ptb_path(cfg) is not None:
+            self.vocab = self.data.vocab  # real PTB sets its own vocab
         layers: list[Layer] = [
             Embedding(self.vocab, cfg["dim"], w_init=init_lib.normal(0.02)),
             PositionEmbedding(cfg["seq_len"], cfg["dim"]),
         ]
         for _ in range(cfg["n_layers"]):
             layers.append(_Block(cfg["dim"], cfg["heads"],
+                                 dropout=cfg["dropout"],
                                  attn_impl=cfg["attn_impl"]))
         layers.append(LayerNorm())
         self.layers = [(f"{i:02d}_{layer.name}", layer)
                        for i, layer in enumerate(layers)]
         self.head = Dense(self.vocab, w_init=init_lib.glorot_normal)
+
+    def build_data(self):
+        cfg = self.config
+        if (cfg.get("dataset") == "stream" or cfg.get("stream_sources")
+                or cfg.get("stream_dir")):
+            raise NotImplementedError(
+                "dataset='stream' not yet ported (ROADMAP queue 1 item 7)")
+        return PTBData(cfg)
+
+    def fused_loss_enabled(self) -> bool:
+        mode = self.config.get("fused_loss", "auto")
+        if mode == "auto":
+            return self.vocab >= 8192
+        return bool(mode)
 
     def init_params(self, gen: torch.Generator):
         """-> fp32 param tree (the reference's layout) on ``gen``'s device."""
@@ -220,3 +271,36 @@ class TransformerLM(Model):
         x = self._run(cp, x, lambda blk, p, h, li: blk.decode_step(
             p, h, kv_cache, li, positions))
         return self._head_logits(cp, x[:, 0, :]), kv_cache
+
+    # -- training -------------------------------------------------------------
+    def apply_trunk(self, cp, tokens, train: bool = False, gen=None):
+        """The trunk over compute-cast params ``cp``: embedding, positions,
+        the blocks (dropout from ``gen`` when ``train``) and the final LN
+        -> hidden states ``[B, T, D]``.  The head stays outside, so the
+        loss can fuse it."""
+        x = self.layers[1][1](cp[self.layers[1][0]], self._embed(cp, tokens))
+        return self._run(cp, x, lambda blk, p, h, li: blk(p, h, train, gen))
+
+    def loss_fn(self, params, batch, gen, train: bool):
+        """-> (loss, metrics ``cost/error/error_top5/perplexity``) for one
+        batch ``{"x": [B, T], "y": [B, T]}`` of int64 token ids.  Params
+        are the fp32 masters; autograd through the compute cast hands back
+        fp32 grads."""
+        cp = self.precision.cast_to_compute(params)
+        h = self.apply_trunk(cp, batch["x"], train=train, gen=gen)
+        y = batch["y"]
+        if self.fused_loss_enabled():
+            loss, err1, err5 = fused_lm_xent(h, cp["head"]["w"],
+                                             cp["head"].get("b"), y)
+        else:
+            logits = self.head(cp["head"], h)
+            loss = softmax_cross_entropy(logits, y)
+            err1 = top_k_error(logits, y, k=1)
+            err5 = (top_k_error(logits, y, k=5) if logits.shape[-1] >= 5
+                    else torch.zeros((), device=h.device))
+        if self.config.get("l2", 0.0):  # L2 folded into the cost
+            loss = loss + self.config["l2"] * global_sq_norm(params)
+        metrics = {"cost": loss.detach(), "error": err1.detach(),
+                   "error_top5": err5.detach(),
+                   "perplexity": torch.exp(loss.detach())}
+        return loss, metrics

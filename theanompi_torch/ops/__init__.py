@@ -1,2 +1,2 @@
-"""Ops of the port: layers, the int8 format, attention, and the wrappers of
-the hand-written kernels (kernels 1, 4, 5)."""
+"""Ops of the port: layers, losses, the optimizer, the int8 format,
+attention, and the wrappers of the hand-written kernels (kernels 1-5)."""

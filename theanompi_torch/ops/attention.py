@@ -15,7 +15,7 @@ from torch import nn
 
 from theanompi_torch.ops import initializers as init_lib
 from theanompi_torch.ops import quant
-from theanompi_torch.ops.flash_attention import flash_attention
+from theanompi_torch.ops.flash_attention import FlashAttention
 from theanompi_torch.ops.layers import Dense, Layer
 
 _NEG_INF = -1e30
@@ -108,11 +108,12 @@ class MultiHeadAttention(Layer):
         return q.reshape(shape), k.reshape(shape), v.reshape(shape)
 
     def attend(self, q, k, v):
-        """The attention core over ``[B, T, H, Dh]``: kernel 1 (through its
-        wrapper) or the blockwise path, as :func:`resolve_attn_impl`
-        decides."""
+        """The attention core over ``[B, T, H, Dh]``: :class:`FlashAttention`
+        (kernel 1 forward, kernels 2 and 3 backward, through their
+        wrappers) or the blockwise path, which autograd differentiates, as
+        :func:`resolve_attn_impl` decides.  Serving and training share it."""
         if resolve_attn_impl(self.impl, q.device) == "pallas":
-            return flash_attention(q, k, v, causal=self.causal)[0]
+            return FlashAttention.apply(q, k, v, self.causal)[0]
         return blockwise_attention(q, k, v, causal=self.causal)
 
     def project_out(self, params, out):

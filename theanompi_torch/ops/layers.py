@@ -1,7 +1,8 @@
-"""The layers the serving slice needs: ``Dense``, ``LayerNorm``, ``Embedding``.
+"""The layers the transformer slices need: ``Dense``, ``Dropout``,
+``LayerNorm``, ``Embedding``.
 
-Counterparts of ``theanompi_tpu/ops/layers.py`` (``Dense``, ``LayerNorm``
-:359, ``Embedding`` :412).  Each layer is an ``nn.Module`` that holds its
+Counterparts of ``theanompi_tpu/ops/layers.py`` (``Dense``, ``Dropout``
+:284, ``LayerNorm`` :359, ``Embedding`` :412).  Each layer is an ``nn.Module`` that holds its
 configuration; its weights live in a param tree passed to ``forward``
 (the ``torch.func.functional_call`` style), laid out exactly as the
 reference's tree, so a converted checkpoint, the int8 transform and the
@@ -63,6 +64,27 @@ class Dense(Layer):
         if self.use_bias:
             y = y + params["b"].to(x.dtype)
         return y
+
+
+class Dropout(Layer):
+    """Inverted dropout: in training each element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)`` in its own
+    dtype, else zeroed; outside training the identity.  The keep mask is
+    drawn from the explicit ``torch.Generator`` the caller passes (the
+    trainer seeds one per step), on that generator's device."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, params, x, train: bool = False, gen=None):
+        if not train or self.rate == 0.0:
+            return x
+        if gen is None:
+            raise ValueError("Dropout needs a generator when train=True")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class LayerNorm(Layer):

@@ -1,1 +1,2 @@
-"""Process and precision plumbing (slice 1: precision and device only)."""
+"""Precision and device plumbing, the exchanger seam, the trainer core and
+the BSP rule (one process)."""

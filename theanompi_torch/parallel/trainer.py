@@ -1,0 +1,282 @@
+"""The trainer core and the rule facade, for one process.
+
+Counterpart of the core of ``theanompi_tpu/parallel/trainer.py``:
+``make_local_step`` (:76) as :func:`make_train_step` — loss, backward,
+exchange, optimizer update — with ``n_subb`` gradient accumulation
+(``_accumulated_grads``, :229); :class:`BaseTrainer` with ``init_state``,
+``train_iter``, ``val_iter``, ``validate``, ``_run_epochs`` and ``run``;
+and :class:`Rule` with ``init``/``wait``.  PyTorch runs eagerly, so there
+is nothing to compile: ``compile_iter_fns`` builds the step closure.
+
+Params are fp32 masters; the model casts to the compute dtype inside
+``loss_fn``, and autograd through that cast returns fp32 grads.  Dropout
+draws from a ``torch.Generator`` on the trainer's device seeded with
+``derive_seed("dropout", seed, step)`` (``..., step, i`` for micro-batch
+``i``), so masks repeat for the same seed and step and differ across
+steps.  Device syncs happen only at print boundaries and in validation.
+
+Not carried by this slice, and refused rather than ignored: checkpoints
+and resume, telemetry, the resilience stack (fault plans, sentinel,
+watchdog, preemption), the profiler window, the prefetcher, sharded
+meshes and more than one worker (:data:`NOT_PORTED_KEYS`).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from theanompi_torch.models.data.base import derive_seed
+from theanompi_torch.parallel.mesh import resolve_device
+from theanompi_torch.tree import tree_leaves_with_path, tree_map
+from theanompi_torch.utils.helper_funcs import import_model, to_device
+from theanompi_torch.utils.recorder import Recorder
+
+#: rule keys of the reference whose machinery is not ported yet: a config
+#: that sets one raises instead of training without it
+NOT_PORTED_KEYS = (
+    "checkpoint_dir", "checkpoint_keep", "checkpoint_async",
+    "checkpoint_verify", "checkpoint_every_n_iters", "resume",
+    "resume_force", "resume_reshard", "telemetry_dir",
+    "telemetry_max_bytes", "telemetry_keep", "telemetry_health",
+    "telemetry_blackbox", "telemetry_profile", "profile_dir",
+    "profile_window", "prefetch", "fault_plan", "sentinel_policy",
+    "sentinel_max_skips", "sentinel_max_rollbacks", "watchdog",
+    "watchdog_multiple", "watchdog_min_s", "watchdog_poll_s",
+    "heartbeat_path", "handle_preemption", "prefetch_stall_timeout",
+    "exch_bucket_mb", "exch_overlap", "exch_ramp", "n_model", "n_seq",
+    "n_pipe")
+
+
+def _leaves(tree) -> list:
+    return [x for _, x in tree_leaves_with_path(tree)]
+
+
+def _unflatten(tree, leaves: list):
+    """A tree shaped like ``tree`` holding ``leaves`` in its leaf order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def _dropout_gen(device, seed: int, *key):
+    """The dropout generator of one step (and micro-batch)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(derive_seed("dropout", seed, *key))
+    return gen
+
+
+def loss_and_grads(model, params, batch, gen):
+    """-> (metrics, grads) of one forward + backward (``train=True``;
+    ``gen`` the dropout generator or None)."""
+    leaves = [p.detach().requires_grad_() for p in _leaves(params)]
+    loss, metrics = model.loss_fn(_unflatten(params, leaves), batch, gen,
+                                  train=True)
+    return metrics, _unflatten(params, torch.autograd.grad(loss, leaves))
+
+
+def _accumulated_grads(model, params, batch, seed, step, device, n_subb):
+    """Micro-batched forward + backward: -> (metrics, mean grads).  The
+    batch splits into ``n_subb`` equal micro-batches; activations live
+    for one micro-batch at a time, the grads sum into one params-sized
+    tree.  Float metrics come back averaged; perplexity is re-derived
+    from the averaged cost (a mean of exps would be biased high)."""
+    n = {x.shape[0] for x in batch.values()}
+    if any(b % n_subb for b in n):
+        raise ValueError(f"n_subb={n_subb} must divide the per-worker batch "
+                         f"(got leading dims {sorted(n)})")
+    gsum, msum = None, {}
+    for i in range(n_subb):
+        mb = {k: x.reshape(n_subb, x.shape[0] // n_subb, *x.shape[1:])[i]
+              for k, x in batch.items()}
+        gen = _dropout_gen(device, seed, step, i)
+        m, g = loss_and_grads(model, params, mb, gen)
+        gsum = g if gsum is None else tree_map(torch.add, gsum, g)
+        for k, v in m.items():
+            msum[k] = v if k not in msum else msum[k] + v
+    grads = tree_map(lambda g: g / n_subb, gsum)
+    metrics = {k: v / n_subb for k, v in msum.items()}
+    if {"perplexity", "cost"} <= metrics.keys():
+        metrics["perplexity"] = torch.exp(metrics["cost"])
+    return metrics, grads
+
+
+def make_train_step(model, optimizer, exchanger, seed: int, device):
+    """The per-step function: ``step(params, opt_state, batch, lr, step)
+    -> (new_params, new_opt_state, metrics)`` — loss and backward (over
+    ``n_subb`` micro-batches when the model config asks), the exchange,
+    then the optimizer update under ``torch.no_grad``."""
+    n_subb = int(model.config.get("n_subb", 1) or 1)
+
+    def train_step(params, opt_state, batch, lr, step):
+        if n_subb == 1:
+            gen = _dropout_gen(device, seed, step)
+            metrics, grads = loss_and_grads(model, params, batch, gen)
+        else:
+            metrics, grads = _accumulated_grads(model, params, batch, seed,
+                                                step, device, n_subb)
+        grads = exchanger.exchange(grads)
+        with torch.no_grad():
+            new_params, new_opt_state = optimizer.update(
+                grads, opt_state, params, lr)
+        return new_params, new_opt_state, metrics
+
+    return train_step
+
+
+class BaseTrainer:
+    """Iterate-validate-record skeleton; a rule supplies ``init_state``
+    and the exchanger (reference names: ``compile_iter_fns``,
+    ``train_iter``, ``val_iter``)."""
+
+    def __init__(self, model, device=None, recorder: Recorder | None = None,
+                 seed: int = 0):
+        self.model = model
+        self.device = resolve_device(device)
+        self.recorder = recorder or Recorder()
+        self.seed = seed
+        self.optimizer = model.build_optimizer()
+        self.global_batch = model.batch_size   # one worker
+        self.exchanger = None
+        self._step_fn = None
+        self.params = None
+        self.opt_state = None
+        self.epoch = 0
+        self.iteration = 0
+
+    # -- rule surface ---------------------------------------------------------
+    def init_state(self) -> None:
+        raise NotImplementedError
+
+    def compile_iter_fns(self) -> None:
+        """Build the step closure around the rule's exchanger."""
+        self._step_fn = make_train_step(self.model, self.optimizer,
+                                        self.exchanger, self.seed,
+                                        self.device)
+
+    # -- iteration ------------------------------------------------------------
+    def train_iter(self, batch: dict, lr: float):
+        r = self.recorder
+        r.start("wait")
+        batch = to_device(batch, self.device)
+        r.end("wait")
+        r.start("calc")
+        self.params, self.opt_state, metrics = self._step_fn(
+            self.params, self.opt_state, batch, float(lr), self.iteration)
+        self.iteration += 1
+        # fence only at print boundaries: a per-step sync would serialize
+        # the host's dispatch with the card
+        fence = (metrics["cost"] if self.iteration % r.print_freq == 0
+                 else None)
+        r.end("calc", fence=fence)
+        r.end_iteration()
+        r.train_metrics(**metrics)
+        r.print_train_info(self.iteration)
+        return metrics
+
+    def val_iter(self, batch: dict) -> dict:
+        batch = to_device(batch, self.device)
+        with torch.no_grad():
+            _, metrics = self.model.loss_fn(self.params, batch, None,
+                                            train=False)
+        return metrics
+
+    def validate(self, epoch: int) -> dict:
+        vb = min(self.global_batch, self.model.data.n_val)
+        if vb == 0:
+            return {}
+        accums: dict[str, list] = {}
+        for batch in self.model.data.val_batches(vb):
+            for k, v in self.val_iter(batch).items():
+                accums.setdefault(k, []).append(v)  # one pull after the loop
+        means = {k: float(torch.stack(v).double().mean())
+                 for k, v in accums.items()}
+        if {"perplexity", "cost"} <= means.keys():
+            means["perplexity"] = float(torch.tensor(means["cost"]).exp())
+        self.recorder.val_metrics(epoch, **means)
+        return means
+
+    def _run_epochs(self, stop=None) -> None:
+        model = self.model
+        for epoch in range(self.epoch, model.n_epochs):
+            self.epoch = epoch
+            self.recorder.start_epoch()
+            lr = model.adjust_hyperp(epoch)
+            it = iter(model.data.train_batches(self.global_batch, epoch,
+                                               seed=self.seed))
+            while True:
+                self.recorder.start("wait")
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    self.recorder.cancel("wait")
+                    break
+                self.recorder.end("wait")
+                self.train_iter(batch, lr)
+            val = self.validate(epoch)
+            self.epoch = epoch + 1
+            if stop is not None and stop(epoch, val):
+                break
+
+    def run(self, stop=None):
+        """Train to completion; ``stop(epoch, val_metrics) -> bool`` may
+        end it early.  -> the recorder."""
+        if self._step_fn is None:
+            self.compile_iter_fns()
+        if self.params is None:
+            self.init_state()
+        self._run_epochs(stop)
+        self.recorder.save()
+        self.model.cleanup()
+        return self.recorder
+
+
+class Rule:
+    """Reference-compatible rule facade::
+
+        rule = BSP(config={"exch_strategy": "psum"})
+        rule.init(devices=1, modelfile="theanompi_torch.models.transformer_lm",
+                  modelclass="TransformerLM", model_config={...})
+        rule.wait()
+
+    ``devices`` is the worker count (1, or None for one); ``device`` the
+    torch device (None: the card, raising without CUDA)."""
+
+    def __init__(self, config: dict[str, Any] | None = None):
+        self.config = config or {}
+        self.trainer: BaseTrainer | None = None
+
+    def make_trainer(self, model, device, recorder) -> BaseTrainer:
+        raise NotImplementedError
+
+    def init(self, devices=None,
+             modelfile: str = "theanompi_torch.models.transformer_lm",
+             modelclass: str = "TransformerLM",
+             model_config: dict | None = None, device=None):
+        unported = sorted(k for k in self.config if k in NOT_PORTED_KEYS)
+        if unported:
+            raise NotImplementedError(
+                f"rule keys {unported} not yet ported (this slice trains "
+                f"one process without checkpoints, telemetry or the "
+                f"resilience stack)")
+        if devices not in (None, 1):
+            raise NotImplementedError(
+                f"devices={devices!r}: more than one worker not yet ported "
+                f"(ROADMAP queue 1 item 5)")
+        device = resolve_device(device)
+        model = import_model(modelfile, modelclass)(dict(model_config or {}))
+        recorder = Recorder(
+            print_freq=self.config.get("print_freq", 40),
+            save_dir=self.config.get("record_dir"),
+            verbose=self.config.get("verbose", model.verbose))
+        self.trainer = self.make_trainer(model, device, recorder)
+        self.trainer.compile_iter_fns()
+        self.trainer.init_state()
+        return self
+
+    def wait(self):
+        """Run training to completion; -> the recorder."""
+        if self.trainer is None:
+            raise RuntimeError("call init() before wait()")
+        return self.trainer.run()
+

@@ -11,11 +11,14 @@ from __future__ import annotations
 from typing import Any, Callable
 
 
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """Apply ``fn`` to every non-dict leaf; dicts are rebuilt in order."""
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every non-dict leaf (and the leaves at the same
+    paths of ``rest``, trees of the same structure); dicts are rebuilt in
+    ``tree``'s order."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves_with_path(tree: Any, prefix: tuple = ()) -> list:
