@@ -8,10 +8,14 @@ conftest is not needed)::
 
 The serving slice's own shapes are held in ``chip_smoke.py``; these
 cover the kernels' other admitted shapes: head dims 32/128, non-causal and
-ragged T for flash attention forward, block sizes 8/32 for paged decode,
-narrow bands, many rows and the unsplit-K path for the int8 matmul; and
-the engine's ``decode_kernel="auto"`` raising where a kernel refuses the
-geometry, since on the card nothing falls back to a plain version.  The
+ragged T for flash attention forward (in bf16 the tensor-core kernel at T
+below one 64-row tile, a ragged last tile and several tiles), block sizes
+8/32 for paged decode, narrow bands, many rows and the unsplit-K path for
+the int8 matmul; and
+the wrappers raising where a kernel refuses the geometry or, for the
+bf16 flash kernels, an operand's alignment, and the engine's
+``decode_kernel="auto"`` raising where a kernel refuses the geometry,
+since on the card nothing falls back to a plain version.  The
 flash attention backward kernels are in ``test_torch_cuda_flash_bwd.py``.
 """
 
@@ -23,6 +27,7 @@ from theanompi_torch.models.transformer_lm import TransformerLM
 
 from theanompi_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_bwd,
     flash_attention_ref,
 )
 from theanompi_torch.ops.paged_attention import (
@@ -63,10 +68,20 @@ def _close(out, ref, rel, row):
     return bool(((o - r).abs() <= rel * r.abs() + row * rms).all())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,h,d,causal", [
-    (2, 16, 2, 32, True), (1, 48, 3, 128, True), (2, 80, 2, 64, False),
-    (1, 208, 1, 32, False)])
+#: kernel 1's shapes: in both dtypes, T below one 64-row tile (16, 48), a
+#: ragged last tile (80) and several key tiles at head dim 32 (208); in
+#: bf16 also three whole causal tiles (192) and a long ragged T at head dim
+#: 128 (1040).  The fp32 kernel is unchanged since these four shapes were
+#: first held.
+FLASH_SHAPES = [(2, 16, 2, 32, True), (1, 48, 3, 128, True),
+                (2, 80, 2, 64, False), (1, 208, 1, 32, False)]
+FLASH_BF16_SHAPES = [(1, 192, 2, 64, True), (2, 1040, 1, 128, False)]
+
+
+@pytest.mark.parametrize("dtype,b,t,h,d,causal", [
+    (dtype, *shape)
+    for dtype in (torch.float32, torch.bfloat16) for shape in FLASH_SHAPES
+] + [(torch.bfloat16, *shape) for shape in FLASH_BF16_SHAPES])
 def test_flash_kernel_matches_plain(dtype, b, t, h, d, causal):
     gen = torch.Generator(device="cuda").manual_seed(t * d)
     q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=gen)
@@ -133,6 +148,23 @@ def test_cuda_wrappers_raise_on_unsupported_shapes():
                                         device="cuda"), 4,
                             torch.zeros(1, 2, 64, device="cuda"),
                             torch.zeros(1, dtype=torch.int32, device="cuda"))
+
+
+def test_bf16_flash_wrappers_raise_on_misaligned_operands():
+    """The bf16 kernels 1 and 2 load and store through TMA, which wants
+    16-byte aligned operands: a view one element past an aligned base
+    raises."""
+    shape = (2, 64, 2, 64)
+    base = torch.zeros(2 * 64 * 2 * 64 + 1, device="cuda",
+                       dtype=torch.bfloat16)
+    off = base[1:].view(shape)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 2
+    x = torch.zeros(shape, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(off, x, x, True)
+    lse = torch.zeros(2, 2, 64, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_bwd(x, x, x, x, lse, off, True)
 
 
 @pytest.mark.parametrize("dim,heads,vocab,block_size,quant,stage", [

@@ -9,11 +9,12 @@ conftest is not needed)::
 
 The training slice's own shapes are held in ``chip_smoke.py``; these cover
 the backward kernels' other admitted shapes: head dims 32/64/128, causal
-and non-causal, ragged T, B > 1, fp32 and bf16; autograd through
+and non-causal, ragged T, B > 1, fp32 and bf16 (T below one 64-row tile
+among them, for bf16 dq's tensor-core kernel); autograd through
 ``FlashAttention`` on the card; and the backward wrapper raising where the
 kernels refuse the geometry, since on the card nothing falls back to a
-plain version.  The forward, paged-decode and int8 kernels are in
-``test_torch_cuda.py``.
+plain version.  The forward, paged-decode and int8 kernels, and the bf16
+flash wrappers' alignment check, are in ``test_torch_cuda.py``.
 """
 
 import pytest
@@ -37,12 +38,12 @@ def _card():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _close(out, ref, rel, row):
-    """|out - ref| <= rel * |ref| + row * rms(ref's row), element by
-    element, a row being one vector of the last axis."""
+def _close(out, ref, rel, row, floor=0.0):
+    """|out - ref| <= rel * |ref| + row * rms(ref's row) + floor, element
+    by element, a row being one vector of the last axis."""
     o, r = out.float(), ref.float()
     rms = r.pow(2).mean(dim=-1, keepdim=True).sqrt()
-    return bool(((o - r).abs() <= rel * r.abs() + row * rms).all())
+    return bool(((o - r).abs() <= rel * r.abs() + row * rms + floor).all())
 
 
 #: kernels 2 and 3 against their plain version.  fp32: the sums over up
@@ -52,12 +53,19 @@ def _close(out, ref, rel, row):
 #: rounding edge may go either way (the forward's flash row term, 2**-5);
 #: the outputs round once more (2**-7)
 BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2 ** -7, 2 ** -5)}
+#: bf16 dq only, beside BWD_TOL: an absolute floor at 1e-5 of the largest
+#: |dq|.  Kernel 2's tensor-core products accumulate in fp32 but do not
+#: round to nearest at every add as IEEE sums do, so in a row whose true
+#: gradient is 0 (the first causal query) dp - delta leaves ~1e-7 |dp|
+#: where the plain version's sums cancel exactly (chip_smoke.py's
+#: DQ_BF16_FLOOR)
+DQ_BF16_FLOOR = 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,h,d,causal", [
-    (2, 64, 2, 32, True), (1, 80, 3, 128, True), (2, 208, 2, 64, False),
-    (3, 144, 1, 64, True), (1, 48, 2, 128, False), (2, 256, 2, 32, False)])
+    (2, 16, 2, 32, True), (1, 80, 3, 128, True), (2, 208, 2, 64, False),
+    (3, 192, 1, 64, True), (1, 48, 2, 128, False), (2, 1040, 2, 32, False)])
 def test_flash_bwd_kernels_match_plain(dtype, b, t, h, d, causal):
     gen = torch.Generator(device="cuda").manual_seed(t * d + causal)
     q, k, v, g = (torch.randn(b, t, h, d, device="cuda", generator=gen)
@@ -66,10 +74,12 @@ def test_flash_bwd_kernels_match_plain(dtype, b, t, h, d, causal):
     got = flash_attention_bwd(q, k, v, out, lse, g, causal)
     ref = flash_attention_bwd_ref(q, k, v, out, lse, g, causal)
     torch.cuda.synchronize()
-    for a, r in zip(got, ref):
+    for i, (a, r) in enumerate(zip(got, ref)):
         assert a.shape == q.shape and a.dtype == dtype
         assert torch.isfinite(a.float()).all()
-        assert _close(a, r, *BWD_TOL[dtype])
+        floor = (DQ_BF16_FLOOR * float(r.float().abs().max())
+                 if i == 0 and dtype == torch.bfloat16 else 0.0)
+        assert _close(a, r, *BWD_TOL[dtype], floor)
 
 
 def test_flash_autograd_on_the_card_matches_blockwise_autograd():

@@ -6,7 +6,8 @@ Every ``csrc/*.cu`` source compiles on its own with ``nvcc`` for
 launch of any kernel — never at import, so the CPU tests import every
 module without ``nvcc`` — and compiles all sources at once, one ``nvcc``
 process each, started together.  A library is reused while its source's
-content hash matches the one in its file name.
+content hash (with the shared ``*.cuh`` headers') matches the one in its
+file name.
 
 Each C entry point takes raw device pointers and the CUDA stream as
 ``void*`` (``ctypes.c_void_p``), launches on that stream and returns
@@ -47,8 +48,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    """The library of ``source``, named by the hash of its text and of the
+    headers beside it (``csrc/*.cuh``, which sources may include)."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for name in [source, *headers]:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
 

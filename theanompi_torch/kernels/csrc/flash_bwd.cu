@@ -22,19 +22,32 @@
 // D=64, causal T=2048) dq does 3 and dk/dv 4 products of 2*T*T/2*D flops
 // per (b, h) against ~7 reads of T*D elements, far past the memory
 // roofline's crossover; the least time is those flops over the
-// tensor-core peak.  This first version does its math on the CUDA cores
-// in fp32 (no mma / wgmma, no TMA), as kernel 1 does, so it sits well
-// above that bound; tensor-core tiles are a later step.
+// tensor-core peak.
 //
-// Design: two deterministic kernels, no atomics, as the reference splits
-// them.  flash_bwd_dq: one CTA of 256 threads per (64-row q tile, head,
-// batch), looping over 64-key tiles up to the diagonal (tiles above it are
-// neither loaded nor computed); dq stays in registers.  flash_bwd_dkv: one
-// CTA per (64-row k tile, head, batch), looping over q tiles from the
-// first one that can see the k tile to the end of T; dk and dv stay in
-// registers.  Only tiles that straddle the diagonal or the end of T pay
-// for the mask (rows or keys past T, keys past the query); any T is taken,
-// the wrapper asks T % 16 == 0 as for kernel 1.  Tiles sit in shared
+// Two deterministic kernels, no atomics, as the reference splits them.
+// Only tiles that straddle the diagonal or the end of T pay for the mask;
+// any T is taken, the wrapper asks T % 16 == 0 as for kernel 1.
+//
+// flash_bwd_dq in bf16 (flash_bwd_dq_wgmma_kernel): the forward's tensor-core
+// design (flash_fwd.cu, hopper.cuh).  One CTA per (64 query rows, head,
+// batch): one consumer warpgroup and one producer warp whose elected thread
+// loads q and dO once and streams k and v tiles of 64 keys through a ring
+// of two buffers (TMA, full/empty mbarriers), up to the diagonal.  Per tile
+// the warpgroup issues S = qs.k^T and dP = dO.v^T as wgmma with both
+// operands in shared memory, forms ds on the accumulator fragments, and
+// issues dQ += dS.k with dS in registers as bf16 and the same k tile read
+// as an MN-major B operand.  dq = scale * acc goes back through shared
+// memory and a TMA store.  As in the forward, the warpgroup's products and
+// its elementwise ds work run one after the other; only the other CTAs on
+// the SM fill the gaps.
+//
+// fp32, and flash_bwd_dkv in both types: the first kernels, math on the
+// CUDA cores (tensor cores have no fp32 product; dk/dv's tensor-core tiles
+// are a later step).  flash_bwd_dq: one CTA of 256 threads per (64-row q
+// tile, head, batch), looping over 64-key tiles up to the diagonal; dq
+// stays in registers.  flash_bwd_dkv: one CTA per (64-row k tile, head,
+// batch), looping over q tiles from the first one that can see the k tile
+// to the end of T; dk and dv stay in registers.  Tiles sit in shared
 // memory as fp32 with padded rows against bank conflicts; each thread owns
 // a 4 x 4 block of the score tile and a 4 x D/16 block of each
 // accumulator.
@@ -42,6 +55,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -326,15 +341,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename F>
-int configure(F kernel, size_t bytes, bool& done) {
-  if (done) return 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  done = true;
-  return 0;
-}
+using hopper::configure;
 
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -395,10 +402,140 @@ int dkv_t(int D, const void* q, const void* k, const void* v,
   }
 }
 
+// -- bf16 dq: wgmma products on TMA-fed tiles -------------------------------------
+
+template <int D>
+using DqPipe = hopper::Pipeline<D, 2>;  // row tiles: q, dO
+
+template <int D>
+__global__ void __launch_bounds__(DqPipe<D>::THREADS, 1)
+flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap qm,
+                          __grid_constant__ const CUtensorMap km,
+                          __grid_constant__ const CUtensorMap vm,
+                          __grid_constant__ const CUtensorMap dom,
+                          __grid_constant__ const CUtensorMap dqm,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta, int T_len,
+                          int causal, float scale) {
+  using namespace hopper;
+  using L = Layout<D>;
+  using P = DqPipe<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const P pipe(smem_raw);
+  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  const int q0 = P::first_row(causal);
+  const int n_kt = P::key_tiles(q0, T_len, causal);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  pipe.init();
+
+  if (warp == P::PRODUCER) {
+    // producer warp: one thread issues every load
+    if (lane == 0) pipe.produce({&qm, &dom}, &km, &vm, h, q0, b, n_kt);
+    return;
+  }
+
+  // the consumer warpgroup: query rows q0 .. q0 + 63
+  const int tid = threadIdx.x;
+  uint8_t* Qw = pipe.row_tile(0);
+  const uint32_t q_addr = smem_u32(Qw);
+  const uint32_t do_addr = smem_u32(pipe.row_tile(1));
+  const int r0 = 16 * (tid / 32) + lane / 4, cq = 2 * (lane % 4);
+  // lse in log2 units and delta, rows r0 and r0 + 8 (0 past T, where q and
+  // dO are zero rows, so ds is 0 there)
+  float lse2[2], dl[2];
+  const size_t rbase = ((size_t)b * H + h) * T_len;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + r0 + 8 * hh;
+    lse2[hh] = row < T_len ? lse[rbase + row] * LOG2E : 0.f;
+    dl[hh] = row < T_len ? delta[rbase + row] : 0.f;
+  }
+  pipe.scale_q(scale, tid);
+
+  float acc[L::NP][L::PW / 2];
+#pragma unroll
+  for (int p = 0; p < L::NP; ++p)
+#pragma unroll
+    for (int i = 0; i < L::PW / 2; ++i) acc[p][i] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = pipe.wait(kt);
+    const int k0 = kt * 64;
+    const uint32_t k_addr = pipe.k_addr(s), v_addr = pipe.v_addr(s);
+    float sc[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sc, L::desc_k(q_addr, kk), L::desc_k(k_addr, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, L::desc_k(do_addr, kk), L::desc_k(v_addr, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    const bool masked = (causal && k0 + 63 > q0) || k0 + 64 > T_len;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      float p = exp2f(fmaf(sc[i], LOG2E, -lse2[hh]));
+      if (masked) {
+        const int key = k0 + 8 * (i / 4) + cq + (i & 1);
+        const int row = q0 + r0 + 8 * hh;
+        if (key >= T_len || (causal && key > row)) p = 0.f;
+      }
+      sc[i] = round_bf16(p * (dp[i] - dl[hh]));  // ds, unscaled
+    }
+    uint32_t da[4][4];
+    to_a_frags(sc, da);
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) fence_regs(acc[p]);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc[p], da[kk], L::desc_mn(k_addr + p * L::PANEL_B, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) fence_regs(acc[p]);
+    pipe.release(s);
+  }
+
+  // epilogue: dq = acc * scale through this warpgroup's (now free) q tile
+  const float sc2[2] = {scale, scale};
+  store_frags<D, L::PW, false>(Qw, acc, sc2, tid);
+  pipe.store(&dqm, Qw, tid, h, q0, b);
+}
+
+template <int D>
+int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dq, int B, int T_len, int H, int causal,
+                    float scale, cudaStream_t st) {
+  using P = DqPipe<D>;
+  static bool configured = false;
+  int rc = configure(flash_bwd_dq_wgmma_kernel<D>, P::SMEM_BYTES,
+                     configured);
+  if (rc) return rc;
+  CUtensorMap m[5];
+  if ((rc = hopper::make_maps<D, 5>(m, {q, k, v, dout, dq}, B, T_len, H)))
+    return rc;
+  dim3 grid(H, B, (T_len + 63) / 64);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, P::THREADS, P::SMEM_BYTES, st>>>(
+      m[0], m[1], m[2], m[3], m[4], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), T_len, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q, k, v, dout, dq: [B, T, H, D]
-// contiguous in that dtype; lse, delta: [B, H, T] fp32.
+// contiguous in that dtype (16-byte aligned in bf16); lse, delta: [B, H, T]
+// fp32.  Returns cudaGetLastError(), or -CUresult when a tensor map fails
+// to encode.
 extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k,
                             const void* v, const void* dout, const void* lse,
                             const void* delta, void* dq, int B, int T, int H,
@@ -406,7 +543,12 @@ extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dq_t<float>(D, q, k, v, dout, lse, delta, dq, B, T, H, causal, scale, st);
-  return dq_t<__nv_bfloat16>(D, q, k, v, dout, lse, delta, dq, B, T, H, causal, scale, st);
+  switch (D) {
+    case 32: return launch_dq_wgmma<32>(q, k, v, dout, lse, delta, dq, B, T, H, causal, scale, st);
+    case 64: return launch_dq_wgmma<64>(q, k, v, dout, lse, delta, dq, B, T, H, causal, scale, st);
+    case 128: return launch_dq_wgmma<128>(q, k, v, dout, lse, delta, dq, B, T, H, causal, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // As flash_bwd_dq; dk, dv: [B, T, H, D] contiguous in the input dtype.

@@ -3,33 +3,57 @@
 // Replaces: theanompi_tpu/ops/pallas_attention.py::_fwd_kernel (pallas_call
 // in _fwd_call, reached through _flash and flash_attention).  Same
 // arithmetic as the Pallas body: the softmax scale folded on q in the input
-// dtype, scores in fp32, an online softmax per row (running max in fp32,
-// masked scores -1e30 and their probabilities forced to 0), probabilities
-// rounded to the input dtype for the P.V product and for the normalizer
-// (the Pallas body's ones column of V), fp32 accumulation, out = acc / l in
-// the input dtype and lse = m + log(l) in fp32.  Here lse is [B, H, T],
-// without the TPU's 8-sublane padding; the backward slice reads it.
+// dtype, scores in fp32, an online softmax per row over 64-key tiles
+// (running max in fp32, masked scores -1e30 and their probabilities 0),
+// probabilities rounded to the input dtype for the P.V product and for the
+// normalizer (the Pallas body's ones column of V), fp32 accumulation, out =
+// acc / l in the input dtype and lse = m + log(l) in fp32.  Here lse is
+// [B, H, T], without the TPU's 8-sublane padding; the backward reads it.
 //
 // Bound on the H100: operations.  Causal prefill at T >= 128 does
 // ~T/2 * 4 flops per loaded element of q, k and v, far above the memory
 // roofline's crossover; the least time is the causal flops over the
-// tensor-core peak.  This first kernel does its math on the CUDA cores in
-// fp32 (no mma / wgmma yet), so it sits well above that bound; tensor-core
-// tiles are a later step.
+// tensor-core peak.
 //
-// Design: one CTA of 256 threads per (64-row q tile, head, batch).  It loops
-// over 64-key tiles only up to the diagonal (tiles above it are neither
-// loaded nor computed) and masks only tiles that straddle the diagonal or
-// the end of the sequence.  q, k and v tiles sit in shared memory as fp32
-// (padded rows against bank conflicts); each thread owns a 4 x 4 block of
-// scores and a 4 x D/16 block of the output accumulator in registers; four
-// threads share each row's softmax update through warp shuffles.  Any T is
-// taken (rows and keys past T are masked); the wrapper asks T % 16 == 0,
-// which every prefill bucket meets.
+// bf16 (flash_fwd_wgmma_kernel): the products run on the tensor cores, as
+// the Pallas body feeds bf16 operands to the MXU with fp32 accumulation.
+// One CTA per (64 query rows, head, batch): one consumer warpgroup and one
+// producer warp whose elected thread issues every TMA load, q once, then k
+// and v tiles of 64 keys through a ring of two buffers with full/empty
+// mbarriers, so the load of tile kt + 1 overlaps the products on tile kt
+// (hopper.cuh's Pipeline).  64-row CTAs ran faster than 128-row ones (two
+// consumer warpgroups sharing one ring) at every shape timed, the training
+// shape included (PERF.md).  Operands stay bf16 in shared memory in the
+// hardware's swizzled layout (hopper.cuh); rows past T arrive as zeros.
+// Per tile, the warpgroup issues S = qs.k^T as wgmma m64n64k16 with both
+// operands in shared memory, takes the row max and sum on the accumulator
+// fragment (two shuffles within each quad), converts p to bf16 in
+// registers, and issues O += P.v with A from those registers and v as an
+// MN-major B operand.  Only tiles that straddle the diagonal or the end of
+// T pay for the mask; tiles above the diagonal are neither loaded nor
+// computed, and in the causal case the heaviest query tiles start first.
+// out goes back through shared memory and a TMA store, lse from the
+// fragment.  What holds it below the bound: the warpgroup waits for each
+// product before its softmax and for P.v before the next tile, so its own
+// products and exp/max work never overlap; only the other CTAs on the SM
+// fill those gaps.  Ping-pong scheduling of two warpgroups and a deeper
+// ring are the next steps (PERF.md has the times).
+//
+// fp32 (flash_fwd_kernel): tensor cores have no fp32 product, so fp32 keeps
+// the first kernel, math on the CUDA cores.  One CTA of 256 threads per
+// (64-row q tile, head, batch); q, k and v tiles sit in shared memory as
+// fp32 (padded rows against bank conflicts); each thread owns a 4 x 4 block
+// of scores and a 4 x D/16 block of the output accumulator in registers;
+// four threads share each row's softmax update through warp shuffles.
+//
+// Any T is taken (rows and keys past T are masked); the wrapper asks
+// T % 16 == 0, which every prefill bucket meets.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -38,22 +62,14 @@ constexpr int BK = 64;
 constexpr int NT = 256;
 constexpr float NEG_INF = -1e30f;
 
+// the CUDA-core kernel below runs fp32 only (bf16 goes to the wgmma kernel)
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 // rounding to the input dtype, kept in fp32 registers
 template <typename T> __device__ __forceinline__ float round_t(float v);
 template <> __device__ __forceinline__ float round_t<float>(float v) { return v; }
-template <> __device__ __forceinline__ float round_t<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 template <int D>
 constexpr size_t smem_floats() {
@@ -252,15 +268,168 @@ int launch_t(int D, const void* q, const void* k, const void* v, void* out,
   }
 }
 
+// -- bf16: wgmma products on TMA-fed tiles ----------------------------------------
+
+template <int D>
+using FwdPipe = hopper::Pipeline<D, 1>;  // row tiles: q
+
+template <int D>
+__global__ void __launch_bounds__(FwdPipe<D>::THREADS, 1)
+flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap qm,
+                       __grid_constant__ const CUtensorMap km,
+                       __grid_constant__ const CUtensorMap vm,
+                       __grid_constant__ const CUtensorMap om,
+                       float* __restrict__ lse, int T_len, int causal,
+                       float scale) {
+  using namespace hopper;
+  using L = Layout<D>;
+  using P = FwdPipe<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const P pipe(smem_raw);
+  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  const int q0 = P::first_row(causal);
+  const int n_kt = P::key_tiles(q0, T_len, causal);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  pipe.init();
+
+  if (warp == P::PRODUCER) {
+    // producer warp: one thread issues every load
+    if (lane == 0) pipe.produce({&qm}, &km, &vm, h, q0, b, n_kt);
+    return;
+  }
+
+  // the consumer warpgroup: query rows q0 .. q0 + 63
+  const int tid = threadIdx.x;
+  uint8_t* Qw = pipe.row_tile(0);
+  const uint32_t q_addr = smem_u32(Qw);
+  pipe.scale_q(scale, tid);
+
+  const int r0 = 16 * (tid / 32) + lane / 4, cq = 2 * (lane % 4);
+  float o[L::NP][L::PW / 2];
+#pragma unroll
+  for (int p = 0; p < L::NP; ++p)
+#pragma unroll
+    for (int i = 0; i < L::PW / 2; ++i) o[p][i] = 0.f;
+  // running max (natural units) and this thread's share of the normalizer,
+  // rows r0 and r0 + 8
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = pipe.wait(kt);
+    const int k0 = kt * 64;
+    const uint32_t k_addr = pipe.k_addr(s), v_addr = pipe.v_addr(s);
+    float sc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sc, L::desc_k(q_addr, kk), L::desc_k(k_addr, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    if ((causal && k0 + 63 > q0) || k0 + 64 > T_len) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = k0 + 8 * (i / 4) + cq + (i & 1);
+        const int row = q0 + r0 + 8 * ((i >> 1) & 1);
+        if (key >= T_len || (causal && key > row)) sc[i] = NEG_INF;
+      }
+    }
+    // every row sees at least one key of every tile it computes (key k0
+    // <= its row, k0 < T), so the new max is finite and a masked score's
+    // exp is exactly 0
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float corr[2], ms[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = quad_max(mx[hh]);
+      corr[hh] = exp2f((m[hh] - mx[hh]) * LOG2E);
+      ms[hh] = mx[hh] * LOG2E;
+      m[hh] = mx[hh];
+      l[hh] *= corr[hh];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      // p rounded to bf16 for P.v and for the normalizer alike
+      const float p = round_bf16(exp2f(fmaf(sc[i], LOG2E, -ms[hh])));
+      sc[i] = p;
+      l[hh] += p;
+    }
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p)
+#pragma unroll
+      for (int i = 0; i < L::PW / 2; ++i) o[p][i] *= corr[(i >> 1) & 1];
+    uint32_t pa[4][4];
+    to_a_frags(sc, pa);
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) fence_regs(o[p]);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(o[p], pa[kk], L::desc_mn(v_addr + p * L::PANEL_B, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) fence_regs(o[p]);
+    pipe.release(s);
+  }
+
+  // epilogue: this warpgroup's q tile is free (its last product is done)
+  float ls[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) ls[hh] = fmaxf(quad_sum(l[hh]), 1e-30f);
+  store_frags<D, L::PW, true>(Qw, o, ls, tid);
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + r0 + 8 * hh;
+      if (row < T_len)
+        lse[((size_t)b * H + h) * T_len + row] = m[hh] + logf(ls[hh]);
+    }
+  }
+  pipe.store(&om, Qw, tid, h, q0, b);
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 void* lse, int B, int T_len, int H, int causal, float scale,
+                 cudaStream_t st) {
+  using P = FwdPipe<D>;
+  static bool configured = false;
+  int rc = hopper::configure(flash_fwd_wgmma_kernel<D>, P::SMEM_BYTES,
+                             configured);
+  if (rc) return rc;
+  CUtensorMap m[4];
+  if ((rc = hopper::make_maps<D, 4>(m, {q, k, v, out}, B, T_len, H)))
+    return rc;
+  dim3 grid(H, B, (T_len + 63) / 64);
+  flash_fwd_wgmma_kernel<D><<<grid, P::THREADS, P::SMEM_BYTES, st>>>(
+      m[0], m[1], m[2], m[3], static_cast<float*>(lse), T_len, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q, k, v, out: [B, T, H, D] contiguous;
-// lse: [B, H, T] fp32.
+// dtype: 0 = float32, 1 = bfloat16.  q, k, v, out: [B, T, H, D] contiguous
+// (16-byte aligned in bf16); lse: [B, H, T] fp32.  Returns
+// cudaGetLastError(), or -CUresult when a tensor map fails to encode.
 extern "C" int flash_fwd(int dtype, const void* q, const void* k,
                          const void* v, void* out, void* lse, int B, int T,
-                         int H, int D, int causal, float scale, void* stream) {
+                         int H, int D, int causal, float scale,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_t<float>(D, q, k, v, out, lse, B, T, H, causal, scale, st);
-  return launch_t<__nv_bfloat16>(D, q, k, v, out, lse, B, T, H, causal, scale, st);
+  switch (D) {
+    case 32: return launch_wgmma<32>(q, k, v, out, lse, B, T, H, causal, scale, st);
+    case 64: return launch_wgmma<64>(q, k, v, out, lse, B, T, H, causal, scale, st);
+    case 128: return launch_wgmma<128>(q, k, v, out, lse, B, T, H, causal, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -11,6 +11,9 @@ CPU tensor runs :func:`flash_attention_ref` / :func:`flash_attention_bwd_ref`.
 :class:`FlashAttention` is the ``torch.autograd.Function`` (the reference's
 ``jax.custom_vjp`` around ``_flash``): kernel 1 forward, kernels 2 and 3
 backward, ``lse`` not differentiable.
+
+In bf16, kernels 1 and 2 run on the tensor cores with TMA loads: their
+operands must be 16-byte aligned.
 """
 
 from __future__ import annotations
@@ -82,6 +85,15 @@ def flash_attention_ref(q, k, v, causal: bool = False):
     return out, m + torch.log(l_safe)
 
 
+def _check_aligned(name, *tensors):
+    """The bf16 kernels read and write through TMA, which wants 16-byte
+    aligned base addresses."""
+    for x in tensors:
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: data_ptr() of a tensor of shape "
+                             f"{tuple(x.shape)} is not 16-byte aligned")
+
+
 def _check_gate(name, q, *others):
     """Kernels 1-3 share one gate: ``T % 16 == 0``, head dim 32/64/128,
     fp32 or bf16, every ``[B, T, H, D]`` operand of q's shape and dtype."""
@@ -111,13 +123,15 @@ def flash_attention(q, k, v, causal: bool = False):
     _check_gate("flash_attention", q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     check_cuda("flash_attention", q, k, v)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_aligned("flash_attention", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     FLASH_FWD.call(
-        "flash_fwd", "ipppppiiiiifp",
-        0 if q.dtype == torch.float32 else 1, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, h, d,
-        int(causal), float(d ** -0.5), stream_ptr(q))
+        "flash_fwd", "ipppppiiiiifp", int(bf16), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, h,
+        d, int(causal), float(d ** -0.5), stream_ptr(q))
     FLASH_FWD.launches += 1
     return out, lse
 
@@ -182,8 +196,10 @@ def flash_attention_bwd(q, k, v, out, lse, d_out, causal: bool = False):
     q, k, v, d_out, lse = (x.contiguous() for x in (q, k, v, d_out, lse))
     delta = _delta(out, d_out)
     check_cuda("flash_attention_bwd", q, k, v, d_out, lse, delta)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dtype = 0 if q.dtype == torch.float32 else 1
+    if dtype:
+        _check_aligned("flash_attention_bwd", q, k, v, d_out)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
     FLASH_BWD_DQ.call(
