@@ -12,8 +12,9 @@ Phases (any failure exits non-zero and prints no result line):
    CUDA kernels (four sources) build from ``theanompi_torch/kernels/csrc``
    with ``nvcc``, one process per source, all at once; ``ptxas``'s
    registers, spills and wgmma notes per kernel, and the number of
-   ``HGMMA`` (wgmma) instructions in each library's SASS
-   (``cuobjdump -sass``), which must not be 0 in the flash libraries.
+   ``HGMMA`` (wgmma) instructions in each library's SASS and in each
+   function of it (``cuobjdump -sass``), which must not be 0 in any flash
+   kernel's bf16 function.
 2. **Each kernel against its plain version on the card**, at the serving
    and training slices' shapes, with the tolerance stated per kernel; one
    line per kernel and shape with ``kernel_ms`` (device time, from a CUDA
@@ -22,7 +23,7 @@ Phases (any failure exits non-zero and prints no result line):
    ``ref_ms`` (the plain version) and ``library_ms`` (one PyTorch call
    computing the same function, timed here only: SDPA and its backward for
    flash attention, dequantize + matmul for the int8 matmul, none for
-   paged decode).  The training-shape rows of kernels 1 and 2 also print
+   paged decode).  The training-shape rows of kernels 1-3 also print
    their times before the bf16 tensor-core redesign (``earlier``), for
    reference.  The flash backward (kernels 2 and 3) has a second witness in fp32:
    ``FlashAttention``'s grads against autograd of the blockwise path.
@@ -81,14 +82,16 @@ SERVE_ARGS = ["--requests", "16", "--prompt-len", "100", "--turns", "8",
               "--max-new-tokens", "32", "--max-batch", "8",
               "--block-size", "16", "--seed", "0"]
 AGREE_MIN = {"float32": 0.99, "bfloat16": 0.95}
-#: kernels 1 and 2 at the training shape before their bf16 tensor-core
+#: kernels 1-3 at the training shape before their bf16 tensor-core
 #: redesign, when both dtypes ran the CUDA-core kernels (PERF.md's kernel
-#: table, NVIDIA H100 80GB HBM3 at 700 W): printed beside today's times,
-#: checked against nothing
+#: table, NVIDIA H100 80GB HBM3 at 700 W: kernels 1 and 2 PR 2's times,
+#: kernel 3 PR 3's): printed beside today's times, checked against nothing
 EARLIER_TRAIN_MS = {("flash_fwd", "bfloat16"): 3.3461,
                     ("flash_fwd", "float32"): 3.3415,
                     ("flash_bwd_dq", "bfloat16"): 4.7159,
-                    ("flash_bwd_dq", "float32"): 4.6164}
+                    ("flash_bwd_dq", "float32"): 4.6164,
+                    ("flash_bwd_dkv", "bfloat16"): 5.7558,
+                    ("flash_bwd_dkv", "float32"): 5.6411}
 
 
 class SmokeFailure(Exception):
@@ -156,26 +159,50 @@ def _dname(dtype):
     return str(dtype).replace("torch.", "")
 
 
+def sass_hgmma(tool, lib):
+    """{function: its number of HGMMA (wgmma) instructions} over the
+    ``Function : ...`` sections of a library's SASS (``cuobjdump -sass``)."""
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None:
+            counts[fn] += line.count("HGMMA")
+    return counts
+
+
 def check_hgmma(K):
-    """The number of HGMMA (wgmma) instructions in each library's SASS;
-    fails if the flash libraries have none (where ``cuobjdump`` exists)."""
+    """The number of HGMMA (wgmma) instructions in each flash kernel's bf16
+    function (``<name>_wgmma_kernel<D>``, one per head dim); fails if one
+    has none (where ``cuobjdump`` exists)."""
+    import re
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         print("sass: cuobjdump not found, HGMMA not counted", flush=True)
         return
+    libs = {}
     for k in K.KERNELS:
-        if k.name == "flash_bwd_dkv":   # shares flash_bwd's library
-            continue
         lib = K._lib_path(k.source)
-        sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                              text=True, timeout=300).stdout
-        n = sass.count("HGMMA")
-        print(f"sass {os.path.basename(lib)}: {n} HGMMA instructions",
-              flush=True)
-        check(n > 0 or not k.source.startswith("flash_"),
-              f"{k.source}: no HGMMA (wgmma) instruction in its SASS")
+        if lib not in libs:
+            libs[lib] = sass_hgmma(tool, lib)
+            print(f"sass {os.path.basename(lib)}: "
+                  f"{sum(libs[lib].values())} HGMMA instructions", flush=True)
+        if not k.source.startswith("flash_"):
+            continue
+        fns = {fn: n for fn, n in libs[lib].items()
+               if f"{k.name}_wgmma_kernel" in fn}
+        for fn, n in sorted(fns.items()):
+            d = re.search(r"ILi(\d+)E", fn)
+            print(f"sass {k.name}_wgmma_kernel<{d.group(1) if d else '?'}>: "
+                  f"{n} HGMMA instructions", flush=True)
+        check(fns and all(n > 0 for n in fns.values()),
+              f"{k.name}: its bf16 kernel has no HGMMA (wgmma) instruction "
+              f"in its SASS ({fns})")
 
 
 # -- phase 2: kernels against their plain versions ------------------------------
@@ -816,6 +843,8 @@ def train_profile(torch, tr, batch, lr, precision):
              "flash_bwd_dkv" if "flash_bwd_dkv_" in n else
              "gemm" if any(w in n.lower() for w in ("gemm", "xmma",
                                                       "cutlass")) else
+             # cuBLAS's Hopper GEMM kernels
+             "gemm_nvjet" if n.startswith("nvjet") else
              "other")
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]

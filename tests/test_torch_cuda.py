@@ -151,9 +151,9 @@ def test_cuda_wrappers_raise_on_unsupported_shapes():
 
 
 def test_bf16_flash_wrappers_raise_on_misaligned_operands():
-    """The bf16 kernels 1 and 2 load and store through TMA, which wants
-    16-byte aligned operands: a view one element past an aligned base
-    raises."""
+    """The bf16 kernels 1-3 load and store through TMA, which wants 16-byte
+    aligned operands (kernel 3 reads lse through TMA too): a view one
+    element past an aligned base raises."""
     shape = (2, 64, 2, 64)
     base = torch.zeros(2 * 64 * 2 * 64 + 1, device="cuda",
                        dtype=torch.bfloat16)
@@ -165,6 +165,10 @@ def test_bf16_flash_wrappers_raise_on_misaligned_operands():
     lse = torch.zeros(2, 2, 64, device="cuda")
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_attention_bwd(x, x, x, x, lse, off, True)
+    lse_off = torch.zeros(2 * 2 * 64 + 1, device="cuda")[1:].view(2, 2, 64)
+    assert lse_off.is_contiguous() and lse_off.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_bwd(x, x, x, x, lse_off, x, True)
 
 
 @pytest.mark.parametrize("dim,heads,vocab,block_size,quant,stage", [

@@ -10,10 +10,12 @@ conftest is not needed)::
 The training slice's own shapes are held in ``chip_smoke.py``; these cover
 the backward kernels' other admitted shapes: head dims 32/64/128, causal
 and non-causal, ragged T, B > 1, fp32 and bf16 (T below one 64-row tile
-among them, for bf16 dq's tensor-core kernel); autograd through
-``FlashAttention`` on the card; and the backward wrapper raising where the
-kernels refuse the geometry, since on the card nothing falls back to a
-plain version.  The forward, paged-decode and int8 kernels, and the bf16
+among them, for the bf16 tensor-core kernels); the edges of bf16 dk/dv's
+streamed q ring (many wraps, a ragged last tile, T below one tile); two
+bf16 backward calls giving bit-equal gradients (no atomics); autograd
+through ``FlashAttention`` on the card; and the backward wrapper raising
+where the kernels refuse the geometry, since on the card nothing falls
+back to a plain version.  The forward, paged-decode and int8 kernels, and the bf16
 flash wrappers' alignment check, are in ``test_torch_cuda.py``.
 """
 
@@ -62,10 +64,17 @@ BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2 ** -7, 2 ** -5)}
 DQ_BF16_FLOOR = 1e-5
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,h,d,causal", [
-    (2, 16, 2, 32, True), (1, 80, 3, 128, True), (2, 208, 2, 64, False),
-    (3, 192, 1, 64, True), (1, 48, 2, 128, False), (2, 1040, 2, 32, False)])
+@pytest.mark.parametrize("dtype,b,t,h,d,causal", [
+    (dtype, *shape) for dtype in (torch.float32, torch.bfloat16)
+    for shape in [(2, 16, 2, 32, True), (1, 80, 3, 128, True),
+                  (2, 208, 2, 64, False), (3, 192, 1, 64, True),
+                  (1, 48, 2, 128, False), (2, 1040, 2, 32, False)]] + [
+    # the edges of bf16 dk/dv's streamed q/dO ring (kernel 3)
+    (torch.bfloat16, 2, 1024, 2, 64, True),   # key tile 0: 16 q tiles
+    (torch.bfloat16, 1, 640, 2, 128, False),  # every key tile: 10 q tiles
+    (torch.bfloat16, 2, 1040, 2, 32, True),   # ragged last key and q tiles
+    (torch.bfloat16, 3, 16, 2, 64, False),    # T below one tile
+    (torch.bfloat16, 2, 48, 1, 128, True)])
 def test_flash_bwd_kernels_match_plain(dtype, b, t, h, d, causal):
     gen = torch.Generator(device="cuda").manual_seed(t * d + causal)
     q, k, v, g = (torch.randn(b, t, h, d, device="cuda", generator=gen)
@@ -80,6 +89,20 @@ def test_flash_bwd_kernels_match_plain(dtype, b, t, h, d, causal):
         floor = (DQ_BF16_FLOOR * float(r.float().abs().max())
                  if i == 0 and dtype == torch.bfloat16 else 0.0)
         assert _close(a, r, *BWD_TOL[dtype], floor)
+
+
+def test_bf16_flash_bwd_is_deterministic():
+    """No atomics: two bf16 backward calls on the same inputs give
+    bit-equal dq, dk and dv."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, g = (torch.randn(2, 1040, 2, 64, device="cuda", generator=gen)
+                  .to(torch.bfloat16) for _ in range(4))
+    out, lse = flash_attention(q, k, v, True)
+    first = flash_attention_bwd(q, k, v, out, lse, g, True)
+    second = flash_attention_bwd(q, k, v, out, lse, g, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_autograd_on_the_card_matches_blockwise_autograd():

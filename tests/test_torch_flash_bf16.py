@@ -1,4 +1,4 @@
-"""The bf16 plain versions of kernels 1 and 2 against the reference's bf16
+"""The bf16 plain versions of kernels 1-3 against the reference's bf16
 arithmetic.
 
 In bf16 the port's flash kernels run on the tensor cores (bf16 operands,
@@ -20,7 +20,10 @@ normalizer by at most 2**-8).  dq also has an absolute floor at 1e-5 of its
 largest element: a row whose true gradient is 0 (the first causal query's)
 comes out at ~1e-8 from dp - delta, summed in another order than the
 reference's, as in the fp32 autograd witness of ``test_torch_flash_bwd.py``.
+dk and dv have no floor.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -88,12 +91,12 @@ def test_flash_ref_bf16_matches_pallas_interpret_at_block_64(b, t, h, d,
     assert float(np.abs(lse.numpy() - j_lse).max()) <= LSE_TOL
 
 
-@pytest.mark.parametrize("b,t,h,d,causal", CASES)
-def test_flash_bwd_ref_bf16_dq_matches_jax_grad_at_block_64(b, t, h, d,
-                                                           causal):
-    """dq of the plain backward against ``jax.grad`` through the
-    reference's interpreted Pallas backward, both from the reference
-    forward's out and lse, so only the backward's arithmetic is compared."""
+@functools.lru_cache(maxsize=None)
+def _bwd_pair(b, t, h, d, causal):
+    """(the plain backward's (dq, dk, dv), ``jax.grad`` through the
+    reference's interpreted Pallas backward, [B, T, H, D] fp32 numpy), both
+    from the reference forward's out and lse, so only the backward's
+    arithmetic is compared."""
     (tq, jq), (tk, jk), (tv, jv), (tg, jg) = _inputs(t * d + causal, 4,
                                                      (b, t, h, d))
 
@@ -104,14 +107,35 @@ def test_flash_bwd_ref_bf16_dq_matches_jax_grad_at_block_64(b, t, h, d,
         return jnp.sum(o.astype(jnp.float32)
                        * jg.transpose(0, 2, 1, 3).astype(jnp.float32))
 
-    j_dq = jax.grad(f)(jq, jk, jv)
-    assert j_dq.dtype == jnp.bfloat16
+    j_grads = jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)
+    assert all(g.dtype == jnp.bfloat16 for g in j_grads)
     j_out, j_lse = _j_forward(jq, jk, jv, causal)
     out = torch.from_numpy(np.asarray(j_out.astype(jnp.float32))
                            .transpose(0, 2, 1, 3).copy()).bfloat16()
-    dq, _, _ = flash_attention_bwd_ref(tq, tk, tv, out,
-                                       torch.from_numpy(j_lse.copy()), tg,
-                                       causal)
-    assert dq.dtype == torch.bfloat16
-    ref = np.asarray(j_dq.astype(jnp.float32)).transpose(0, 2, 1, 3)
-    _assert_within(dq.float().numpy(), ref, 1e-5 * float(np.abs(ref).max()))
+    port = flash_attention_bwd_ref(tq, tk, tv, out,
+                                   torch.from_numpy(j_lse.copy()), tg, causal)
+    assert all(g.dtype == torch.bfloat16 for g in port)
+    return ([g.float().numpy() for g in port],
+            [np.asarray(g.astype(jnp.float32)).transpose(0, 2, 1, 3)
+             for g in j_grads])
+
+
+@pytest.mark.parametrize("b,t,h,d,causal", CASES)
+def test_flash_bwd_ref_bf16_dq_matches_jax_grad_at_block_64(b, t, h, d,
+                                                           causal):
+    """dq of the plain backward against ``jax.grad`` through the
+    reference's interpreted Pallas backward."""
+    port, ref = _bwd_pair(b, t, h, d, causal)
+    _assert_within(port[0], ref[0], 1e-5 * float(np.abs(ref[0]).max()))
+
+
+@pytest.mark.parametrize("grad", ["dk", "dv"])
+@pytest.mark.parametrize("b,t,h,d,causal", CASES)
+def test_flash_bwd_ref_bf16_dkv_matches_jax_grad_at_block_64(b, t, h, d,
+                                                            causal, grad):
+    """dk and dv of the plain backward against the same ``jax.grad``, with
+    no floor: the witness that the rounding points kernel 3 follows (p
+    rounded to bf16 before pᵀ·dO, ds before dsᵀ·qs) are the reference's."""
+    port, ref = _bwd_pair(b, t, h, d, causal)
+    i = {"dk": 1, "dv": 2}[grad]
+    _assert_within(port[i], ref[i])

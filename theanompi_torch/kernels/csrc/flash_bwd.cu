@@ -28,22 +28,41 @@
 // Only tiles that straddle the diagonal or the end of T pay for the mask;
 // any T is taken, the wrapper asks T % 16 == 0 as for kernel 1.
 //
-// flash_bwd_dq in bf16 (flash_bwd_dq_wgmma_kernel): the forward's tensor-core
-// design (flash_fwd.cu, hopper.cuh).  One CTA per (64 query rows, head,
-// batch): one consumer warpgroup and one producer warp whose elected thread
-// loads q and dO once and streams k and v tiles of 64 keys through a ring
-// of two buffers (TMA, full/empty mbarriers), up to the diagonal.  Per tile
-// the warpgroup issues S = qs.k^T and dP = dO.v^T as wgmma with both
-// operands in shared memory, forms ds on the accumulator fragments, and
-// issues dQ += dS.k with dS in registers as bf16 and the same k tile read
-// as an MN-major B operand.  dq = scale * acc goes back through shared
-// memory and a TMA store.  As in the forward, the warpgroup's products and
-// its elementwise ds work run one after the other; only the other CTAs on
-// the SM fill the gaps.
+// bf16: both kernels run on the tensor cores, on the blocks of hopper.cuh
+// (the forward's design, flash_fwd.cu).  One CTA per (64 rows, head,
+// batch): one consumer warpgroup, whose products read two fixed tiles,
+// loaded once, and two tiles per stage streamed through a ring of two
+// buffers (TMA, full/empty mbarriers, hopper::Pipeline).
 //
-// fp32, and flash_bwd_dkv in both types: the first kernels, math on the
-// CUDA cores (tensor cores have no fp32 product; dk/dv's tensor-core tiles
-// are a later step).  flash_bwd_dq: one CTA of 256 threads per (64-row q
+// flash_bwd_dq (flash_bwd_dq_wgmma_kernel): 64 query rows; q and dO fixed, k
+// and v streamed up to the diagonal by a producer warp.  Per key tile the
+// warpgroup issues S = qs.k^T and dP = dO.v^T as wgmma with both operands in
+// shared memory, forms ds on the accumulator fragments, and issues dQ +=
+// dS.k with dS in registers as bf16 and the same k tile read as an MN-major
+// B operand.  dq = scale * acc goes back through shared memory and a TMA
+// store.  The warpgroup's products and its elementwise ds work run one after
+// the other; only the other CTAs on the SM fill the gaps.
+//
+// flash_bwd_dkv (flash_bwd_dkv_wgmma_kernel): the roles of the two pairs
+// swapped.  64 key rows; k and v fixed, q and dO streamed from the first q
+// tile that sees the keys to the end of T, each stage with its 64 rows of
+// lse and delta (TMA over the [B * H, T] fp32 arrays); in the causal case
+// key tile 0, which sees every q tile, starts first.  No producer warp:
+// thread 0 issues the loads, a stage ahead, so a CTA is four warps and two
+// fit on an SM at up to 255 registers a thread (189 at D=64; with a fifth
+// warp the limit is 168, where ptxas serialized the wgmma; PERF.md has the
+// times).  Each landed q tile is scaled in place to qs, unless the rounded
+// scale is a power of two (D=64): qs is then q times it exactly, and S^T and
+// dK take it in fp32 instead.  Keys are the accumulators' rows, so the
+// products S^T = k.qs^T and dP^T = v.dO^T leave P^T and dS^T in registers in
+// the A layout of dV += P^T.dO and dK += dS^T.qs (dO and qs read MN-major);
+// lse and delta are indexed by the accumulator's column.  The elementwise
+// work overlaps the warpgroup's own products: P^T is formed while dP^T runs,
+// dS^T while dV runs.  dk and dv go out through the free k and v tiles and
+// TMA stores.
+//
+// fp32: the first kernels, math on the CUDA cores (tensor cores have no
+// fp32 product).  flash_bwd_dq: one CTA of 256 threads per (64-row q
 // tile, head, batch), looping over 64-key tiles up to the diagonal; dq
 // stays in registers.  flash_bwd_dkv: one CTA per (64-row k tile, head,
 // batch), looping over q tiles from the first one that can see the k tile
@@ -64,22 +83,14 @@ constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;
 
+// the CUDA-core kernels below run fp32 only (bf16 goes to the wgmma kernels)
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 // rounding to the input dtype, kept in fp32 registers
 template <typename T> __device__ __forceinline__ float round_t(float v);
 template <> __device__ __forceinline__ float round_t<float>(float v) { return v; }
-template <> __device__ __forceinline__ float round_t<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 // Load rows [t0, t0 + 64) of one head of x ([B, T, H, D]) into a padded
 // fp32 tile [64][D + 1], zeros past T; mul (rounded to T first) scales
@@ -405,7 +416,7 @@ int dkv_t(int D, const void* q, const void* k, const void* v,
 // -- bf16 dq: wgmma products on TMA-fed tiles -------------------------------------
 
 template <int D>
-using DqPipe = hopper::Pipeline<D, 2>;  // row tiles: q, dO
+using DqPipe = hopper::Pipeline<D, 2, 2>;  // fixed q, dO; streamed k, v
 
 template <int D>
 __global__ void __launch_bounds__(DqPipe<D>::THREADS, 1)
@@ -430,15 +441,15 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap qm,
 
   if (warp == P::PRODUCER) {
     // producer warp: one thread issues every load
-    if (lane == 0) pipe.produce({&qm, &dom}, &km, &vm, h, q0, b, n_kt);
+    if (lane == 0) pipe.produce({&qm, &dom}, q0, {&km, &vm}, nullptr, h, b, 0, n_kt);
     return;
   }
 
   // the consumer warpgroup: query rows q0 .. q0 + 63
   const int tid = threadIdx.x;
-  uint8_t* Qw = pipe.row_tile(0);
+  uint8_t* Qw = pipe.fixed_tile(0);
   const uint32_t q_addr = smem_u32(Qw);
-  const uint32_t do_addr = smem_u32(pipe.row_tile(1));
+  const uint32_t do_addr = smem_u32(pipe.fixed_tile(1));
   const int r0 = 16 * (tid / 32) + lane / 4, cq = 2 * (lane % 4);
   // lse in log2 units and delta, rows r0 and r0 + 8 (0 past T, where q and
   // dO are zero rows, so ds is 0 there)
@@ -450,7 +461,8 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap qm,
     lse2[hh] = row < T_len ? lse[rbase + row] * LOG2E : 0.f;
     dl[hh] = row < T_len ? delta[rbase + row] : 0.f;
   }
-  pipe.scale_q(scale, tid);
+  pipe.wait_fixed();
+  pipe.scale(Qw, scale, tid);
 
   float acc[L::NP][L::PW / 2];
 #pragma unroll
@@ -461,7 +473,7 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap qm,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int s = pipe.wait(kt);
     const int k0 = kt * 64;
-    const uint32_t k_addr = pipe.k_addr(s), v_addr = pipe.v_addr(s);
+    const uint32_t k_addr = pipe.addr(s, 0), v_addr = pipe.addr(s, 1);
     float sc[32], dp[32];
     wgmma_fence();
 #pragma unroll
@@ -471,7 +483,7 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap qm,
     for (int kk = 0; kk < D / 16; ++kk)
       wgmma_ss(dp, L::desc_k(do_addr, kk), L::desc_k(v_addr, kk), kk > 0);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(sc);
     fence_regs(dp);
 
@@ -498,7 +510,7 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap qm,
       for (int kk = 0; kk < 4; ++kk)
         wgmma_rs(acc[p], da[kk], L::desc_mn(k_addr + p * L::PANEL_B, kk));
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
 #pragma unroll
     for (int p = 0; p < L::NP; ++p) fence_regs(acc[p]);
     pipe.release(s);
@@ -527,6 +539,190 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
   flash_bwd_dq_wgmma_kernel<D><<<grid, P::THREADS, P::SMEM_BYTES, st>>>(
       m[0], m[1], m[2], m[3], m[4], static_cast<const float*>(lse),
       static_cast<const float*>(delta), T_len, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// -- bf16 dk, dv: the same blocks with the roles of the two pairs swapped -----------
+
+template <int D>
+using DkvPipe = hopper::Pipeline<D, 2, 2, 2>;  // fixed k, v; streamed q, dO;
+                                               // vectors lse, delta
+constexpr int DKV_THREADS = 128;               // no producer warp
+
+template <int D>
+__global__ void __launch_bounds__(DKV_THREADS, 2)
+flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qm,
+                           __grid_constant__ const CUtensorMap km,
+                           __grid_constant__ const CUtensorMap vm,
+                           __grid_constant__ const CUtensorMap dom,
+                           __grid_constant__ const CUtensorMap lsem,
+                           __grid_constant__ const CUtensorMap deltam,
+                           __grid_constant__ const CUtensorMap dkm,
+                           __grid_constant__ const CUtensorMap dvm,
+                           int T_len, int causal, float scale) {
+  using namespace hopper;
+  using L = Layout<D>;
+  using P = DkvPipe<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const P pipe(smem_raw);
+  const int h = blockIdx.x, b = blockIdx.y;
+  // key tile 0 sees every q tile: in the causal case the heaviest go first
+  const int k0 = blockIdx.z * 64;
+  const int qt0 = causal ? blockIdx.z : 0;     // the first q tile that sees it
+  const int n_qt = (T_len + 63) / 64 - qt0;
+  const int tid = threadIdx.x, lane = tid % 32;
+  pipe.init();
+
+  // thread 0 issues every load: k and v, then stages ahead of the products
+  const CUtensorMap* const rows[2] = {&qm, &dom};
+  const CUtensorMap* const vecs[2] = {&lsem, &deltam};
+  if (tid == 0) {
+    pipe.load_fixed({&km, &vm}, k0, h, b);
+    for (int i = 0; i < min(P::STAGES, n_qt); ++i)
+      pipe.load_stage(i, rows, vecs, h, b, qt0 * 64);
+  }
+
+  // the warpgroup: keys k0 .. k0 + 63, the accumulators' rows
+  uint8_t* Kw = pipe.fixed_tile(0);
+  uint8_t* Vw = pipe.fixed_tile(1);
+  const uint32_t k_addr = smem_u32(Kw), v_addr = smem_u32(Vw);
+  const int r0 = 16 * (tid / 32) + lane / 4, cq = 2 * (lane % 4);
+  // qs = round(q * round(scale)).  Where round(scale) is a power of two
+  // (D = 64), that is q times it exactly, and so are S^T and dK, which take
+  // it in fp32 instead, bit for bit the same: the q tiles stay as they land
+  const float qscale = round_bf16(scale);
+  const bool fold = (__float_as_uint(qscale) & 0x7FFFFFu) == 0;
+  const float s_mul = fold ? LOG2E * qscale : LOG2E;
+  float dk[L::NP][L::PW / 2], dv[L::NP][L::PW / 2];
+#pragma unroll
+  for (int p = 0; p < L::NP; ++p)
+#pragma unroll
+    for (int i = 0; i < L::PW / 2; ++i) dk[p][i] = dv[p][i] = 0.f;
+  pipe.wait_fixed();
+
+  for (int it = 0; it < n_qt; ++it) {
+    // thread 0: the slot stage it - 1 frees takes stage it + STAGES - 1
+    const int ahead = it + P::STAGES - 1;
+    if (tid == 0 && it > 0 && ahead < n_qt)
+      pipe.load_stage(ahead, rows, vecs, h, b, qt0 * 64);
+    const int s = pipe.wait(it);
+    const int q0 = (qt0 + it) * 64;
+    uint8_t* Qs = pipe.tile(s, 0);
+    if (!fold) pipe.scale(Qs, scale, tid);
+    const uint32_t q_addr = smem_u32(Qs), do_addr = pipe.addr(s, 1);
+    // S^T = k.qs^T and dP^T = v.dO^T: keys down the rows, queries across
+    float st[32], dpt[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(st, L::desc_k(k_addr, kk), L::desc_k(q_addr, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dpt, L::desc_k(v_addr, kk), L::desc_k(do_addr, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T landed; dP^T may still run
+    fence_regs(st);
+
+    // P^T, masked where the tile straddles the diagonal or the end of T;
+    // lse indexed by the column (query 8 j + cq + e at register 4 j + e and
+    // 4 j + 2 + e); 0 past T, where q and dO are zero rows
+    const float* lse_s = pipe.vec(s, 0);
+    const bool masked =
+        (causal && q0 == k0) || q0 + 64 > T_len || k0 + 64 > T_len;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + cq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        float p = exp2f(fmaf(st[i], s_mul, -(e & 1 ? l.y : l.x) * LOG2E));
+        if (masked) {
+          const int key = k0 + r0 + 8 * (e >> 1);
+          const int query = q0 + 8 * j + cq + (e & 1);
+          if (query >= T_len || key >= T_len || (causal && key > query))
+            p = 0.f;
+        }
+        st[i] = p;
+      }
+    }
+    // dV += round(P^T).dO, dO read MN-major panel by panel
+    uint32_t pa[4][4];
+    to_a_frags(st, pa);
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) fence_regs(dv[p]);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dv[p], pa[kk], L::desc_mn(do_addr + p * L::PANEL_B, kk));
+    wgmma_commit();
+
+    // dS^T = P^T * (dP^T - delta) while dV runs, rounded to bf16 once, by
+    // to_a_frags
+    wgmma_wait<1>();  // dP^T landed; dV may still run
+    fence_regs(dpt);
+    const float* delta_s = pipe.vec(s, 1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d = *reinterpret_cast<const float2*>(delta_s + 8 * j + cq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        dpt[i] = st[i] * (dpt[i] - (e & 1 ? d.y : d.x));
+      }
+    }
+    // dK += dS^T.qs, qs read MN-major
+    uint32_t da[4][4];
+    to_a_frags(dpt, da);
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) fence_regs(dk[p]);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dk[p], da[kk], L::desc_mn(q_addr + p * L::PANEL_B, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < L::NP; ++p) {
+      fence_regs(dk[p]);
+      fence_regs(dv[p]);
+    }
+    pipe.release(s);
+  }
+
+  // epilogue: the k and v tiles are free (their last products are done);
+  // each warp writes the 16 rows its own products read
+  const float one[2] = {1.f, 1.f}, dk_mul[2] = {fold ? qscale : 1.f,
+                                                fold ? qscale : 1.f};
+  store_frags<D, L::PW, false>(Kw, dk, dk_mul, tid);
+  store_frags<D, L::PW, false>(Vw, dv, one, tid);
+  pipe.store(&dkm, Kw, tid, h, k0, b);
+  pipe.store(&dvm, Vw, tid, h, k0, b);
+}
+
+template <int D>
+int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dk, void* dv, int B, int T_len, int H, int causal,
+                     float scale, cudaStream_t st) {
+  using P = DkvPipe<D>;
+  static bool configured = false;
+  int rc = configure(flash_bwd_dkv_wgmma_kernel<D>, P::SMEM_BYTES,
+                     configured);
+  if (rc) return rc;
+  CUtensorMap m[6], lm, dm;
+  if ((rc = hopper::make_maps<D, 6>(m, {q, k, v, dout, dk, dv}, B, T_len,
+                                    H)) ||
+      (rc = hopper::make_vec_map(&lm, lse, B * H, T_len)) ||
+      (rc = hopper::make_vec_map(&dm, delta, B * H, T_len)))
+    return rc;
+  dim3 grid(H, B, (T_len + 63) / 64);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, DKV_THREADS, P::SMEM_BYTES, st>>>(
+      m[0], m[1], m[2], m[3], lm, dm, m[4], m[5], T_len, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -560,5 +756,10 @@ extern "C" int flash_bwd_dkv(int dtype, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dkv_t<float>(D, q, k, v, dout, lse, delta, dk, dv, B, T, H, causal, scale, st);
-  return dkv_t<__nv_bfloat16>(D, q, k, v, dout, lse, delta, dk, dv, B, T, H, causal, scale, st);
+  switch (D) {
+    case 32: return launch_dkv_wgmma<32>(q, k, v, dout, lse, delta, dk, dv, B, T, H, causal, scale, st);
+    case 64: return launch_dkv_wgmma<64>(q, k, v, dout, lse, delta, dk, dv, B, T, H, causal, scale, st);
+    case 128: return launch_dkv_wgmma<128>(q, k, v, dout, lse, delta, dk, dv, B, T, H, causal, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -271,7 +271,7 @@ int launch_t(int D, const void* q, const void* k, const void* v, void* out,
 // -- bf16: wgmma products on TMA-fed tiles ----------------------------------------
 
 template <int D>
-using FwdPipe = hopper::Pipeline<D, 1>;  // row tiles: q
+using FwdPipe = hopper::Pipeline<D, 1, 2>;  // fixed q; streamed k, v
 
 template <int D>
 __global__ void __launch_bounds__(FwdPipe<D>::THREADS, 1)
@@ -294,15 +294,16 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap qm,
 
   if (warp == P::PRODUCER) {
     // producer warp: one thread issues every load
-    if (lane == 0) pipe.produce({&qm}, &km, &vm, h, q0, b, n_kt);
+    if (lane == 0) pipe.produce({&qm}, q0, {&km, &vm}, nullptr, h, b, 0, n_kt);
     return;
   }
 
   // the consumer warpgroup: query rows q0 .. q0 + 63
   const int tid = threadIdx.x;
-  uint8_t* Qw = pipe.row_tile(0);
+  uint8_t* Qw = pipe.fixed_tile(0);
   const uint32_t q_addr = smem_u32(Qw);
-  pipe.scale_q(scale, tid);
+  pipe.wait_fixed();
+  pipe.scale(Qw, scale, tid);
 
   const int r0 = 16 * (tid / 32) + lane / 4, cq = 2 * (lane % 4);
   float o[L::NP][L::PW / 2];
@@ -317,14 +318,14 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap qm,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int s = pipe.wait(kt);
     const int k0 = kt * 64;
-    const uint32_t k_addr = pipe.k_addr(s), v_addr = pipe.v_addr(s);
+    const uint32_t k_addr = pipe.addr(s, 0), v_addr = pipe.addr(s, 1);
     float sc[32];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
       wgmma_ss(sc, L::desc_k(q_addr, kk), L::desc_k(k_addr, kk), kk > 0);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(sc);
 
     if ((causal && k0 + 63 > q0) || k0 + 64 > T_len) {
@@ -374,7 +375,7 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap qm,
       for (int kk = 0; kk < 4; ++kk)
         wgmma_rs(o[p], pa[kk], L::desc_mn(v_addr + p * L::PANEL_B, kk));
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
 #pragma unroll
     for (int p = 0; p < L::NP; ++p) fence_regs(o[p]);
     pipe.release(s);

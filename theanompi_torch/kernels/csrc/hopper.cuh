@@ -1,8 +1,9 @@
 // Hopper building blocks of the bf16 flash kernels (flash_fwd.cu,
 // flash_bwd.cu): mbarriers, TMA loads and stores of 64-row tiles of one head
-// of a [B, T, H, D] bf16 tensor, the wgmma descriptors of those tiles, the
-// wgmma shapes the kernels issue, and the host side that encodes a tensor
-// map.  Compiled for sm_90a only (wgmma does not exist on plain sm_90).
+// of a [B, T, H, D] bf16 tensor (and of 64-value rows of an fp32 vector),
+// the wgmma descriptors of those tiles, the wgmma shapes the kernels issue,
+// the load ring they share, and the host side that encodes a tensor map.
+// Compiled for sm_90a only (wgmma does not exist on plain sm_90).
 //
 // Tile layout in shared memory.  A tile is 64 rows (time steps) of one head,
 // D bf16 columns, cut into panels of PW = min(D, 64) columns: one TMA box
@@ -10,9 +11,10 @@
 // of PW * 2 bytes, swizzled by the hardware (128-byte swizzle at PW = 64,
 // 64-byte at PW = 32).  Rows past T arrive as zeros.  The same layout serves
 // wgmma as a K-major operand (the contracted dim along the row: q, dO, and
-// k or v in S = q.k^T and dP = dO.v^T) and as an MN-major B operand (the
-// contracted dim down the rows: v in O += P.v, k in dQ += dS.k), through
-// the two descriptor forms below.
+// k or v in S = q.k^T and dP = dO.v^T, or in S^T = k.qs^T and dP^T =
+// v.dO^T) and as an MN-major B operand (the contracted dim down the rows: v
+// in O += P.v, k in dQ += dS.k, dO in dV += P^T.dO, qs in dK += dS^T.qs),
+// through the two descriptor forms below.
 
 #pragma once
 
@@ -143,6 +145,18 @@ __device__ __forceinline__ void tma_load_tile(uint8_t* dst,
         : "memory");
 }
 
+// 64 fp32 values t0 .. t0 + 63 of row `row` of an [R, T] array (a map from
+// make_vec_map); zeros past T; completion counted on `bar`
+__device__ __forceinline__ void tma_load_vec(float* dst, const CUtensorMap* map,
+                                             uint64_t* bar, int t0, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(t0),
+      "r"(row)
+      : "memory");
+}
+
 // the reverse: rows past T are not written; returns once shared memory has
 // been read
 template <int D>
@@ -170,8 +184,11 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+// wait until at most N committed groups are still running (they complete
+// in the order they were committed)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 // keep the compiler from moving reads or writes of accumulator registers
 // across the asynchronous products
@@ -313,40 +330,52 @@ __device__ __forceinline__ void store_frags(uint8_t* tile,
 
 // -- the CTA's load pipeline -------------------------------------------------------
 //
-// A CTA of one consumer warpgroup (warps 0-3, 64 query rows) and one
-// producer warp (warp 4).  Shared memory, from a 1024-byte aligned base: NR
-// row tiles (q, and dO in dq), loaded once on `rbar`; then the k and v
-// tiles of 64 keys through a ring of STAGES buffers, each with a `full`
-// mbarrier (the producer's TMA bytes landed) and an `empty` one (the four
-// consumer warps are done with the stage), so the load of key tile kt + 1
-// overlaps the products on tile kt.
-template <int D, int NR>
+// A CTA of one consumer warpgroup (warps 0-3, 64 rows of the result) and
+// one producer warp (warp 4), or of the consumer warpgroup alone, its thread
+// 0 issuing the loads (dk/dv: a fifth warp would take a full register
+// share on one of the SM's four sub-partitions, so two CTAs of five warps
+// fit on an SM only at <= 168 registers a thread).  Shared memory, from a
+// 1024-byte aligned base: NF fixed tiles, loaded once on `fbar` (q, and dO
+// in dq; k and v in dk/dv); then a ring of STAGES slots, each NS streamed
+// tiles (k and v; q and dO in dk/dv) and NV fp32 vectors of 64 values (lse
+// and delta of the stage's 64 query rows in dk/dv), with a `full` mbarrier
+// (the stage's TMA bytes landed) and an `empty` one (the four consumer
+// warps are done with the slot), so the load of stage i + 1 overlaps the
+// products on stage i.  Stage i holds rows t0 + 64 i .. t0 + 64 i + 63.
+template <int D, int NF, int NS, int NV = 0>
 struct Pipeline {
   using L = Layout<D>;
   static constexpr int STAGES = 2;
-  static constexpr int THREADS = 128 + 32;
+  static constexpr int THREADS = 128 + 32;           // with a producer warp
   static constexpr int PRODUCER = 4;                 // the producer's warp
+  static constexpr int VEC_B = 64 * 4;               // bytes per vector
   static constexpr size_t SMEM_BYTES =
-      1024 + (size_t)(NR + 2 * STAGES) * L::TILE_B + (2 * STAGES + 1) * 8;
+      1024 + (size_t)(NF + STAGES * NS) * L::TILE_B +
+      (size_t)STAGES * NV * VEC_B + (2 * STAGES + 1) * 8;
 
-  uint8_t* rows;                                     // [NR] tiles
-  uint8_t* ks;                                       // [STAGES] tiles
-  uint8_t* vs;                                       // [STAGES] tiles
+  uint8_t* fixed;                                    // [NF] tiles
+  uint8_t* ring;                                     // [STAGES][NS] tiles
+  float* vecs;                                       // [STAGES][NV][64]
   uint64_t* full;                                    // [STAGES]
   uint64_t* empty;                                   // [STAGES]
-  uint64_t* rbar;
+  uint64_t* fbar;
 
   __device__ explicit Pipeline(uint8_t* raw)
-      : rows(align1024(raw)),
-        ks(rows + NR * L::TILE_B),
-        vs(ks + STAGES * L::TILE_B),
-        full(reinterpret_cast<uint64_t*>(vs + STAGES * L::TILE_B)),
+      : fixed(align1024(raw)),
+        ring(fixed + NF * L::TILE_B),
+        vecs(reinterpret_cast<float*>(ring + STAGES * NS * L::TILE_B)),
+        full(reinterpret_cast<uint64_t*>(vecs + STAGES * NV * 64)),
         empty(full + STAGES),
-        rbar(empty + STAGES) {}
+        fbar(empty + STAGES) {}
 
-  __device__ uint8_t* row_tile(int r) const { return rows + r * L::TILE_B; }
-  __device__ uint32_t k_addr(int s) const { return smem_u32(ks + s * L::TILE_B); }
-  __device__ uint32_t v_addr(int s) const { return smem_u32(vs + s * L::TILE_B); }
+  __device__ uint8_t* fixed_tile(int f) const { return fixed + f * L::TILE_B; }
+  __device__ uint8_t* tile(int s, int j) const {
+    return ring + (s * NS + j) * L::TILE_B;
+  }
+  __device__ uint32_t addr(int s, int j) const { return smem_u32(tile(s, j)); }
+  __device__ const float* vec(int s, int j) const {
+    return vecs + (s * NV + j) * 64;
+  }
 
   // the first query row of this CTA; grid (H, B, ceil(T / 64)), and in the
   // causal case the heaviest row tiles (most key tiles) go first
@@ -366,55 +395,72 @@ struct Pipeline {
         mbar_init(&full[s], 1);
         mbar_init(&empty[s], 4);  // one arrival per consumer warp
       }
-      mbar_init(rbar, 1);
+      mbar_init(fbar, 1);
       fence_barrier_init();
     }
     __syncthreads();
   }
 
-  // the producer warp's elected thread: the row tiles of the NR maps, then
-  // k and v of key tiles 0 .. n_kt - 1
-  __device__ void produce(const CUtensorMap* const (&rmaps)[NR],
-                          const CUtensorMap* km, const CUtensorMap* vm,
-                          int h, int q0, int b, int n_kt) const {
-    mbar_expect_tx(rbar, NR * L::TILE_B);
-    for (int r = 0; r < NR; ++r)
-      tma_load_tile<D>(row_tile(r), rmaps[r], rbar, h, q0, b);
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int s = kt % STAGES;
-      if (kt >= STAGES) mbar_wait(&empty[s], (kt / STAGES - 1) & 1);
-      mbar_expect_tx(&full[s], 2 * L::TILE_B);
-      tma_load_tile<D>(ks + s * L::TILE_B, km, &full[s], h, kt * 64, b);
-      tma_load_tile<D>(vs + s * L::TILE_B, vm, &full[s], h, kt * 64, b);
-    }
+  // -- the loads, all from one thread --
+  // the fixed tiles of the NF maps at row f0
+  __device__ void load_fixed(const CUtensorMap* const (&fmaps)[NF], int f0,
+                             int h, int b) const {
+    mbar_expect_tx(fbar, NF * L::TILE_B);
+    for (int f = 0; f < NF; ++f)
+      tma_load_tile<D>(fixed_tile(f), fmaps[f], fbar, h, f0, b);
+  }
+  // stage i, once its slot is free (the consumers released stage i -
+  // STAGES): the tiles of the NS maps at row t0 + 64 i and the vectors of
+  // the NV maps (make_vec_map) at the same rows of this CTA's (batch, head)
+  // row; grid (H, B, ...)
+  __device__ void load_stage(int i, const CUtensorMap* const (&smaps)[NS],
+                             const CUtensorMap* const* vmaps, int h, int b,
+                             int t0) const {
+    const int s = i % STAGES, t = t0 + 64 * i;
+    if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
+    mbar_expect_tx(&full[s], NS * L::TILE_B + NV * VEC_B);
+    for (int j = 0; j < NS; ++j)
+      tma_load_tile<D>(tile(s, j), smaps[j], &full[s], h, t, b);
+    for (int j = 0; j < NV; ++j)
+      tma_load_vec(vecs + (s * NV + j) * 64, vmaps[j], &full[s], t,
+                   b * gridDim.x + h);
+  }
+  // the producer warp's elected thread: every load, stages 0 .. n - 1
+  __device__ void produce(const CUtensorMap* const (&fmaps)[NF], int f0,
+                          const CUtensorMap* const (&smaps)[NS],
+                          const CUtensorMap* const* vmaps, int h, int b,
+                          int t0, int n) const {
+    load_fixed(fmaps, f0, h, b);
+    for (int i = 0; i < n; ++i) load_stage(i, smaps, vmaps, h, b, t0);
   }
 
-  // the consumers: the q tile (row tile 0), once landed, scaled in place to
-  // qs = round_bf16(q * round_bf16(scale)) and made visible to wgmma
-  __device__ void scale_q(float scale, int tid) const {
-    mbar_wait(rbar, 0);
-    scale_tile<D>(row_tile(0), round_bf16(scale), tid);
+  // the consumers: wait for the fixed tiles
+  __device__ void wait_fixed() const { mbar_wait(fbar, 0); }
+  // the consumers: a landed q tile scaled in place to qs = round_bf16(q *
+  // round_bf16(scale)) and made visible to wgmma
+  __device__ void scale(uint8_t* q_tile, float scale, int tid) const {
+    scale_tile<D>(q_tile, round_bf16(scale), tid);
     fence_proxy_async();
     bar_sync(1, 128);
   }
-  // wait for key tile kt; -> its stage
-  __device__ int wait(int kt) const {
-    const int s = kt % STAGES;
-    mbar_wait(&full[s], (kt / STAGES) & 1);
+  // wait for stage i; -> its slot
+  __device__ int wait(int i) const {
+    const int s = i % STAGES;
+    mbar_wait(&full[s], (i / STAGES) & 1);
     return s;
   }
-  // every consumer warp, once done with stage s
+  // every consumer warp, once done with slot s
   __device__ void release(int s) const {
     __syncwarp();
     if (threadIdx.x % 32 == 0) mbar_arrive(&empty[s]);
   }
-  // the result, written to `tile` (store_frags), to global rows q0 .. q0 +
+  // the result, written to `tile` (store_frags), to global rows t0 .. t0 +
   // 63 (those before T)
   __device__ void store(const CUtensorMap* map, uint8_t* tile, int tid, int h,
-                        int q0, int b) const {
+                        int t0, int b) const {
     fence_proxy_async();
     bar_sync(1, 128);
-    if (tid == 0) tma_store_tile<D>(map, tile, h, q0, b);
+    if (tid == 0) tma_store_tile<D>(map, tile, h, t0, b);
   }
 };
 
@@ -474,6 +520,24 @@ static inline int make_map(CUtensorMap* map, const void* ptr, int B, int T,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       L::ROW_B == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r;
+}
+
+// the tensor map of a contiguous [R, T] fp32 array (16-byte aligned, T % 4
+// == 0) with the box {64, 1}: one stage's vector; returns as make_map
+static inline int make_vec_map(CUtensorMap* map, const void* ptr, int R,
+                               int T) {
+  EncodeTiledFn enc = encode_tiled();
+  if (!enc) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)T, (cuuint64_t)R};
+  const cuuint64_t strides[1] = {(cuuint64_t)T * 4};
+  const cuuint32_t box[2] = {64, 1};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
 

@@ -12,8 +12,8 @@ CPU tensor runs :func:`flash_attention_ref` / :func:`flash_attention_bwd_ref`.
 ``jax.custom_vjp`` around ``_flash``): kernel 1 forward, kernels 2 and 3
 backward, ``lse`` not differentiable.
 
-In bf16, kernels 1 and 2 run on the tensor cores with TMA loads: their
-operands must be 16-byte aligned.
+In bf16, kernels 1-3 run on the tensor cores with TMA loads: their
+operands, and the backward's lse, must be 16-byte aligned.
 """
 
 from __future__ import annotations
@@ -198,7 +198,7 @@ def flash_attention_bwd(q, k, v, out, lse, d_out, causal: bool = False):
     check_cuda("flash_attention_bwd", q, k, v, d_out, lse, delta)
     dtype = 0 if q.dtype == torch.float32 else 1
     if dtype:
-        _check_aligned("flash_attention_bwd", q, k, v, d_out)
+        _check_aligned("flash_attention_bwd", q, k, v, d_out, lse)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
