@@ -14,7 +14,9 @@ Phases (any failure exits non-zero and prints no result line):
    registers, spills and wgmma notes per kernel, and the number of
    ``HGMMA`` (wgmma) instructions in each library's SASS and in each
    function of it (``cuobjdump -sass``), which must not be 0 in any flash
-   kernel's bf16 function.
+   kernel's bf16 function; and the number of TF32 ``HMMA`` (``mma.sync``)
+   instructions in each of fp32 dq's functions (three TF32 passes a
+   product on the tensor cores), which must not be 0 either.
 2. **Each kernel against its plain version on the card**, at the serving
    and training slices' shapes, with the tolerance stated per kernel; one
    line per kernel and shape with ``kernel_ms`` (device time, from a CUDA
@@ -25,8 +27,11 @@ Phases (any failure exits non-zero and prints no result line):
    flash attention, dequantize + matmul for the int8 matmul, none for
    paged decode).  The training-shape rows of kernels 1-3 also print
    their times before the bf16 tensor-core redesign (``earlier``), for
-   reference.  The flash backward (kernels 2 and 3) has a second witness in fp32:
-   ``FlashAttention``'s grads against autograd of the blockwise path.
+   reference, and fp32 dq the time of the CUDA-core kernel its three-pass
+   TF32 design replaced.  The flash backward (kernels 2 and 3) prints its
+   worst error/limit per kernel and dtype, and checks that two fp32 calls
+   give bit-equal dq; it has a second witness in fp32: ``FlashAttention``'s
+   grads against autograd of the blockwise path.
 3. **The serving path at full width**, through the CLI's ``serve`` (what
    ``python -m theanompi_torch.serving`` runs) — ``TransformerLM`` dim
    512, 8 heads, 8 layers, seq_len 2048, vocab 32768, max_batch 8,
@@ -73,6 +78,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: NVIDIA H100 SXM data sheet, dense rates at the 700 W limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+#: an fp32-accurate product runs on the tensor cores as three TF32 passes
+#: (495 TFLOP/s dense), so the least time for the flash kernels' fp32 work
+#: is taken at 495 / 3; their rows also print the CUDA-core bound (67
+#: TFLOP/s) that stood before, for comparison
+PEAK_FLOPS_FP32_TC = 495e12 / 3
 
 SERVE_CFG = {"dim": 512, "heads": 8, "n_layers": 8, "seq_len": 2048,
              "vocab": 32768, "dropout": 0.0}
@@ -82,14 +92,15 @@ SERVE_ARGS = ["--requests", "16", "--prompt-len", "100", "--turns", "8",
               "--max-new-tokens", "32", "--max-batch", "8",
               "--block-size", "16", "--seed", "0"]
 AGREE_MIN = {"float32": 0.99, "bfloat16": 0.95}
-#: kernels 1-3 at the training shape before their bf16 tensor-core
-#: redesign, when both dtypes ran the CUDA-core kernels (PERF.md's kernel
-#: table, NVIDIA H100 80GB HBM3 at 700 W: kernels 1 and 2 PR 2's times,
-#: kernel 3 PR 3's): printed beside today's times, checked against nothing
+#: kernels 1-3 at the training shape as CUDA-core kernels, before their
+#: tensor-core redesign (PERF.md's kernel table, NVIDIA H100 80GB HBM3 at
+#: 700 W, the last run of each before it; fp32 kernels 1 and 3 are still
+#: CUDA-core kernels): printed beside today's times, checked against
+#: nothing
 EARLIER_TRAIN_MS = {("flash_fwd", "bfloat16"): 3.3461,
                     ("flash_fwd", "float32"): 3.3415,
                     ("flash_bwd_dq", "bfloat16"): 4.7159,
-                    ("flash_bwd_dq", "float32"): 4.6164,
+                    ("flash_bwd_dq", "float32"): 4.5764,
                     ("flash_bwd_dkv", "bfloat16"): 5.7558,
                     ("flash_bwd_dkv", "float32"): 5.6411}
 
@@ -134,13 +145,23 @@ def time_ms(fn, iters=20, graph=False):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes, flops, dtype):
+def bound_ms(n_bytes, flops, dtype, peak=None):
     """Least time on the card: max(bytes / memory rate, flops / peak of
-    the operand type); -> (ms, "bytes" | "operations")."""
+    the operand type, or ``peak``); -> (ms, "bytes" | "operations")."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = flops / (peak or PEAK_FLOPS[dtype])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def flash_bound(n_bytes, flops, dtype):
+    """A flash kernel's bound: fp32 work at the three-pass TF32 rate.
+    -> (ms, "bytes" | "operations", the CUDA-core bound in ms for fp32,
+    else None)."""
+    if dtype != "float32":
+        return (*bound_ms(n_bytes, flops, dtype), None)
+    return (*bound_ms(n_bytes, flops, dtype, PEAK_FLOPS_FP32_TC),
+            bound_ms(n_bytes, flops, dtype)[0])
 
 
 def within(out, ref, rel, row, floor=0.0):
@@ -159,25 +180,28 @@ def _dname(dtype):
     return str(dtype).replace("torch.", "")
 
 
-def sass_hgmma(tool, lib):
-    """{function: its number of HGMMA (wgmma) instructions} over the
-    ``Function : ...`` sections of a library's SASS (``cuobjdump -sass``)."""
+def sass_mma(tool, lib):
+    """{function: (its HGMMA (wgmma) instructions, its TF32 HMMA (mma.sync
+    with TF32 operands) instructions)} over the ``Function : ...`` sections
+    of a library's SASS (``cuobjdump -sass``)."""
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, timeout=300).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ", 1)[1].strip()
-            counts[fn] = 0
+            counts[fn] = [0, 0]
         elif fn is not None:
-            counts[fn] += line.count("HGMMA")
+            counts[fn][0] += line.count("HGMMA")
+            counts[fn][1] += "HMMA" in line and ".TF32" in line
     return counts
 
 
 def check_hgmma(K):
     """The number of HGMMA (wgmma) instructions in each flash kernel's bf16
-    function (``<name>_wgmma_kernel<D>``, one per head dim); fails if one
-    has none (where ``cuobjdump`` exists)."""
+    function (``<name>_wgmma_kernel<D>``, one per head dim), and of TF32
+    HMMA instructions in fp32 dq's (``flash_bwd_dq_tf32x3_kernel<D>``);
+    fails if one has none (where ``cuobjdump`` exists)."""
     import re
     import shutil
 
@@ -189,20 +213,26 @@ def check_hgmma(K):
     for k in K.KERNELS:
         lib = K._lib_path(k.source)
         if lib not in libs:
-            libs[lib] = sass_hgmma(tool, lib)
+            libs[lib] = sass_mma(tool, lib)
             print(f"sass {os.path.basename(lib)}: "
-                  f"{sum(libs[lib].values())} HGMMA instructions", flush=True)
+                  f"{sum(n[0] for n in libs[lib].values())} HGMMA, "
+                  f"{sum(n[1] for n in libs[lib].values())} TF32 HMMA "
+                  f"instructions", flush=True)
         if not k.source.startswith("flash_"):
             continue
-        fns = {fn: n for fn, n in libs[lib].items()
-               if f"{k.name}_wgmma_kernel" in fn}
-        for fn, n in sorted(fns.items()):
-            d = re.search(r"ILi(\d+)E", fn)
-            print(f"sass {k.name}_wgmma_kernel<{d.group(1) if d else '?'}>: "
-                  f"{n} HGMMA instructions", flush=True)
-        check(fns and all(n > 0 for n in fns.values()),
-              f"{k.name}: its bf16 kernel has no HGMMA (wgmma) instruction "
-              f"in its SASS ({fns})")
+        kinds = [("_wgmma_kernel", 0, "HGMMA", "bf16")]
+        if k.name == "flash_bwd_dq":
+            kinds.append(("_tf32x3_kernel", 1, "TF32 HMMA", "fp32"))
+        for suffix, col, what, dt in kinds:
+            fns = {fn: n[col] for fn, n in libs[lib].items()
+                   if f"{k.name}{suffix}" in fn}
+            for fn, n in sorted(fns.items()):
+                d = re.search(r"ILi(\d+)E", fn)
+                print(f"sass {k.name}{suffix}<{d.group(1) if d else '?'}>: "
+                      f"{n} {what} instructions", flush=True)
+            check(len(fns) == 3 and all(n > 0 for n in fns.values()),
+                  f"{k.name}: a {dt} kernel has no {what} instruction in "
+                  f"its SASS ({fns})")
 
 
 # -- phase 2: kernels against their plain versions ------------------------------
@@ -256,14 +286,15 @@ def check_flash(torch):
             elt = q.element_size()
             n_bytes = 4 * b * t * h * d * elt + b * h * t * 4
             flops = 4 * b * h * d * t * (t + 1) // 2
-            bms, by = bound_ms(n_bytes, flops, _dname(dtype))
+            bms, by, bcc = flash_bound(n_bytes, flops, _dname(dtype))
             shape = f"B={b} T={t} H={h} D={d} causal"
             rows.append(dict(dtype=_dname(dtype), shape=shape,
                              max_abs_err=max(err, lse_err), ratio=ratio,
                              tol=f"{rel:.3g}|ref|+{row:.3g}rms+lse{lse_tol}",
                              ms=ms, call_ms=call_ms,
                              plain_ms=ref_ms, flops=flops,
-                             library_ms=lib_ms, bound_ms=bms, bound_by=by))
+                             library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                             bound_cuda_cores_ms=bcc))
     return rows
 
 
@@ -452,7 +483,7 @@ def check_flash_bwd(torch):
              for d in (32, 64, 128) for t in (128, 1040, 1024, 2048)]
     cases += [(dtype, True, TRAIN_ATTN["b"], TRAIN_ATTN["d"], TRAIN_ATTN["t"])
               for dtype in (torch.bfloat16, torch.float32)]
-    worst = {}
+    worst = {}  # (dtype, "dq" | "dk/dv") -> the largest error/limit
     for dtype, causal, b, d, t in cases:
         h = 8
         dn = _dname(dtype)
@@ -476,9 +507,18 @@ def check_flash_bwd(torch):
                   f"error/limit {ratio:.3g} (limit {rel:.3g}|ref| + "
                   f"{row:.3g} rms(row) + {floor:.3g})")
             errs.append((err, ratio))
-            worst[dn] = max(worst.get(dn, 0.0), ratio)
+            key = (dn, "dq" if name == "dq" else "dk/dv")
+            worst[key] = max(worst.get(key, 0.0), ratio)
         shape = (f"B={b} T={t} H={h} D={d} "
                  f"{'causal' if causal else 'full'}")
+        if dn == "float32" and b == TRAIN_ATTN["b"]:
+            # one CTA owns its rows of dq, summed in a fixed order
+            again = flash_attention_bwd(q, k, v, out, lse, g, causal)[0]
+            torch.cuda.synchronize()
+            check(torch.equal(again, got[0]), f"flash bwd fp32 {shape}: two "
+                  f"calls give different dq")
+            print(f"check flash_bwd_dq float32 {shape}: two calls give "
+                  f"bit-equal dq", flush=True)
         if not (causal and d == 64 and t in (128, 1024, 2048)):
             continue
         dq_call, dkv_call = _bwd_launchers(torch, q, k, v, out, lse, g,
@@ -507,17 +547,20 @@ def check_flash_bwd(torch):
                 (dkv_rows, dkv_ms, 2, 4, errs[1:],
                  f"{rel:.3g}|ref|+{row:.3g}rms")):
             err, ratio = max(e[0] for e in mine), max(e[1] for e in mine)
-            bms, by = bound_ms((4 + n_out) * n * elt + rows_bytes,
-                               2 * n_mm * d * pairs, dn)
+            bms, by, bcc = flash_bound((4 + n_out) * n * elt + rows_bytes,
+                                       2 * n_mm * d * pairs, dn)
             kernel_rows.append(dict(
                 dtype=dn, shape=shape, max_abs_err=err, ratio=ratio,
                 tol=tol, ms=ms, call_ms=call_ms,
                 plain_ms=ref_ms, library_ms=lib_ms, bound_ms=bms,
-                flops=2 * n_mm * d * pairs, bound_by=by))
-    print(f"flash bwd: worst error/limit bf16 {worst['bfloat16']:.3g} "
+                flops=2 * n_mm * d * pairs, bound_by=by,
+                bound_cuda_cores_ms=bcc))
+    print(f"flash bwd: worst error/limit bf16 dq {worst['bfloat16', 'dq']:.3g}"
+          f", dk/dv {worst['bfloat16', 'dk/dv']:.3g} "
           f"(limit {BWD_TOL['bfloat16'][0]:.3g}|ref| + "
           f"{BWD_TOL['bfloat16'][1]:.3g} rms, dq + {DQ_BF16_FLOOR:g} "
-          f"max|dq|), fp32 {worst['float32']:.3g} "
+          f"max|dq|); fp32 dq {worst['float32', 'dq']:.3g}, dk/dv "
+          f"{worst['float32', 'dk/dv']:.3g} "
           f"(limit {BWD_TOL['float32'][0]:.3g}|ref| + "
           f"{BWD_TOL['float32'][1]:.3g} rms); call_ms and ref_ms cover "
           f"both kernels, library_ms is SDPA's backward", flush=True)
@@ -563,6 +606,9 @@ def print_rows(name, rows):
         before = EARLIER_TRAIN_MS.get((name, r["dtype"]))
         before = (f" (earlier: {before} ms)"
                   if before and r["shape"].startswith(t_shape) else "")
+        # fp32 flash rows: the CUDA-core bound beside the three-pass TF32 one
+        cc = ("" if r.get("bound_cuda_cores_ms") is None else
+              f" bound_cuda_cores_ms={r['bound_cuda_cores_ms']:.5f}")
         print(f"check {name} {r['dtype']} {r['shape']}: "
               f"kernel_ms={r['ms']:.4f}{before} "
               f"TFLOP/s={r['flops'] / r['ms'] / 1e9:.2f} "
@@ -570,7 +616,7 @@ def print_rows(name, rows):
               f"call_ms={r['call_ms']:.4f} "
               f"ref_ms={r['plain_ms']:.4f} "
               f"library_ms={lib} bound_ms={r['bound_ms']:.5f} "
-              f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.3g} "
+              f"({r['bound_by']}){cc} max_abs_err={r['max_abs_err']:.3g} "
               f"err/limit={r['ratio']:.3g} limit={r['tol']}", flush=True)
 
 

@@ -61,21 +61,38 @@
 // dS^T while dV runs.  dk and dv go out through the free k and v tiles and
 // TMA stores.
 //
-// fp32: the first kernels, math on the CUDA cores (tensor cores have no
-// fp32 product).  flash_bwd_dq: one CTA of 256 threads per (64-row q
-// tile, head, batch), looping over 64-key tiles up to the diagonal; dq
-// stays in registers.  flash_bwd_dkv: one CTA per (64-row k tile, head,
-// batch), looping over q tiles from the first one that can see the k tile
-// to the end of T; dk and dv stay in registers.  Tiles sit in shared
-// memory as fp32 with padded rows against bank conflicts; each thread owns
-// a 4 x 4 block of the score tile and a 4 x D/16 block of each
-// accumulator.
+// fp32 flash_bwd_dq (flash_bwd_dq_tf32x3_kernel): the tensor cores have no
+// fp32 product, so each product runs as three TF32 passes of mma.sync
+// m16n8k8 (tf32x3.cuh), fp32-accurate at 165 TFLOP/s of peak against the
+// CUDA cores' 67.  One CTA of eight warps per (64 query rows, head, batch):
+// four row groups of 16, each split between two warps that take 32 keys of
+// every 64-key tile (twice the warps of one warp a row group, in the same
+// shared memory; their dq is summed once, at the end).  q and dO land once,
+// q scaled in place; k and v stream up to the diagonal through a two-stage
+// cp.async ring, all as fp32 rows of D + 4 floats (conflict-free fragment
+// loads).  Per key tile a warp forms its 16 x 32 block of S = qs.k^T and
+// dP = dO.v^T, ds on those accumulator fragments, and dQ += dS.k with dS in
+// registers: the fragment of n-tile j is the A fragment of key step j once
+// the keys are taken in the order 8j + 2t, 8j + 2t + 1 (k's rows read to
+// match), so dS never goes through shared memory.  On the diagonal tile a
+// warp skips the key columns above its rows.  The first causal rows (those
+// of the first key tile of the first q tile) take dp in FFMA, as the plain
+// version's fp32 product sums it: see the kernel.  Deterministic: each CTA
+// owns its rows of dq, summed in a fixed order.
+//
+// fp32 flash_bwd_dkv: math on the CUDA cores.  One CTA of 256 threads per
+// (64-row k tile, head, batch), looping over q tiles from the first one
+// that can see the k tile to the end of T; dk and dv stay in registers.
+// Tiles sit in shared memory as fp32 with padded rows against bank
+// conflicts; each thread owns a 4 x 4 block of the score tile and a
+// 4 x D/16 block of each accumulator.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -83,7 +100,7 @@ constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;
 
-// the CUDA-core kernels below run fp32 only (bf16 goes to the wgmma kernels)
+// the CUDA-core kernel below (fp32 dk/dv) and its helpers: fp32 only
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <typename T> __device__ __forceinline__ T from_f(float v);
@@ -142,99 +159,263 @@ __device__ __forceinline__ void two_products(const float* A, const float* Bm,
   }
 }
 
+// -- fp32 dq: three-pass TF32 mma.sync on the tensor cores --------------------
+
+// Eight warps: warp w takes the 16 query rows 16 (w % 4) .. and the 32 keys
+// 32 (w / 4) .. of every 64-key tile; the two key halves' dq are summed at
+// the end.  Two stages of k and v in flight.
 template <int D>
-constexpr size_t dq_smem_floats() {
-  return 4 * (size_t)64 * (D + 1) + (size_t)BQ * (BK + 1) + 2 * BQ;
+struct Dq32 {
+  static constexpr int LD = D + 4;      // floats per tile row (tf32x3.cuh)
+  static constexpr int TILE = 64 * LD;  // floats per tile
+  static constexpr int THREADS = 256;
+  static constexpr int NJ = 4;          // 8-key n-tiles a warp
+  // registers: two CTAs an SM at up to 128 a thread (one at D = 128, where
+  // shared memory holds one)
+  static constexpr int MIN_BLOCKS = D == 128 ? 1 : 2;
+  // q and dO, then k and v for each of two stages
+  static constexpr size_t SMEM_BYTES = 6 * (size_t)TILE * sizeof(float);
+};
+
+// s[j] = rows r0 .. r0 + 15 of Qs . keys kb + 8 j .. kb + 8 j + 7 of Ks,
+// and dp[j] the same of dOs and Vs, over D, for j < nj (the rest stay 0),
+// in three TF32 passes
+template <int D, int NJ>
+__device__ __forceinline__ void scores(float (&s)[NJ][4], float (&dp)[NJ][4],
+                                       const float* Qs, const float* dOs,
+                                       const float* Ks, const float* Vs,
+                                       int r0, int kb, int lane, int nj) {
+  constexpr int LD = Dq32<D>::LD;
+  using namespace tf32x3;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 8) {
+    float a[4], o[4];
+    uint32_t ah[4], al[4], oh[4], ol[4];
+    load_a<LD>(a, Qs, r0, kk, lane);
+    split(a, ah, al);
+    load_a<LD>(o, dOs, r0, kk, lane);
+    split(o, oh, ol);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j >= nj) continue;
+      float bv[2];
+      uint32_t bh[2], bl[2];
+      load_b_t<LD>(bv, Ks, kb + 8 * j, kk, lane);
+      split(bv, bh, bl);
+      mma3(s[j], ah, al, bh, bl);
+      load_b_t<LD>(bv, Vs, kb + 8 * j, kk, lane);
+      split(bv, bh, bl);
+      mma3(dp[j], oh, ol, bh, bl);
+    }
+  }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int T_len, int H, int causal, float scale) {
-  constexpr int CT = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;                      // [BQ][D + 1], q * scale
-  float* dOs = Qs + 64 * (D + 1);        // [BQ][D + 1]
-  float* Ks = dOs + 64 * (D + 1);        // [BK][D + 1]
-  float* Vs = Ks + 64 * (D + 1);         // [BK][D + 1]
-  float* DS = Vs + 64 * (D + 1);         // [BQ][BK + 1], ds
-  float* lse_s = DS + BQ * (BK + 1);     // [BQ]
-  float* del_s = lse_s + BQ;             // [BQ]
+// dp[j] of scores() again in fp32 FFMA, each element one fma chain over d
+// in order from 0, as an fp32 matrix product sums it (for the first causal
+// rows, see the kernel)
+template <int D, int NJ>
+__device__ __forceinline__ void dp_ffma(float (&dp)[NJ][4], const float* dOs,
+                                        const float* Vs, int r0, int kb,
+                                        int lane, int nj) {
+  constexpr int LD = Dq32<D>::LD;
+  const float* a0 = dOs + (r0 + lane / 4) * LD;
+  const float* a1 = a0 + 8 * LD;
+  const float* b0 = Vs + (kb + 2 * (lane % 4)) * LD;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    const float x0 = a0[d], x1 = a1[d];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j >= nj) continue;
+      const float y0 = b0[8 * j * LD + d], y1 = b0[(8 * j + 1) * LD + d];
+      dp[j][0] = fmaf(x0, y0, dp[j][0]);
+      dp[j][1] = fmaf(x0, y1, dp[j][1]);
+      dp[j][2] = fmaf(x1, y0, dp[j][2]);
+      dp[j][3] = fmaf(x1, y1, dp[j][3]);
+    }
+  }
+}
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = qt * BQ;
+template <int D>
+__global__ void __launch_bounds__(Dq32<D>::THREADS, Dq32<D>::MIN_BLOCKS)
+flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq, int T_len, int causal,
+                           float scale) {
+  using S = Dq32<D>;
+  using namespace tf32x3;
+  constexpr int LD = S::LD, TILE = S::TILE, NT32 = S::THREADS, NJ = S::NJ;
+  extern __shared__ __align__(16) float smem_f[];
+  float* Qs = smem_f;             // q, scaled in place once it lands
+  float* dOs = smem_f + TILE;
+  float* KV = smem_f + 2 * TILE;  // stage s: k at KV + 2 s TILE, v after it
+  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  // causal: the q tiles that see the most keys start first
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * 64;
+  const int nk = (T_len + 63) / 64;
+  const int n_kt = causal ? min(qt, nk - 1) + 1 : nk;
   const size_t row = (size_t)H * D;
   const size_t base = (size_t)b * T_len * row + (size_t)h * D;
-  const size_t rbase = ((size_t)b * H + h) * T_len;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = warp % 4, kh = warp / 4;
+  const int r0 = 16 * rg;       // this warp's rows of the tile: r0 .. r0 + 15
+  const int kb = 8 * NJ * kh;   // and its keys of each tile: kb .. kb + 8 NJ - 1
+  const int g = lane / 4, t2 = 2 * (lane % 4);
 
-  load_tile<T, D>(Qs, q, base, row, q0, T_len, true, round_t<T>(scale));
-  load_tile<T, D>(dOs, dout, base, row, q0, T_len, false, 1.f);
-  if (tid < BQ) {
-    const bool in = q0 + tid < T_len;
-    lse_s[tid] = in ? lse[rbase + q0 + tid] : 0.f;
-    del_s[tid] = in ? delta[rbase + q0 + tid] : 0.f;
+  // group 0: q, dO and stage 0; group 1: stage 1 (empty if there is none)
+  load_tile_async<D, LD, NT32>(Qs, q + base, row, q0, T_len, tid);
+  load_tile_async<D, LD, NT32>(dOs, dout + base, row, q0, T_len, tid);
+#pragma unroll
+  for (int st = 0; st < 2; ++st) {
+    if (st < n_kt) {
+      load_tile_async<D, LD, NT32>(KV + 2 * st * TILE, k + base, row, 64 * st,
+                                   T_len, tid);
+      load_tile_async<D, LD, NT32>(KV + (2 * st + 1) * TILE, v + base, row,
+                                   64 * st, T_len, tid);
+    }
+    cp_async_commit();
   }
-  float acc[4][CT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
 
-  const int nk = (T_len + BK - 1) / BK;
-  const int kt_end = causal ? min((q0 + BQ - 1) / BK, nk - 1) : nk - 1;
-  for (int kt = 0; kt <= kt_end; ++kt) {
-    const int k0 = kt * BK;
-    load_tile<T, D>(Ks, k, base, row, k0, T_len, false, 1.f);
-    load_tile<T, D>(Vs, v, base, row, k0, T_len, false, 1.f);
+  // lse in log2 units and delta of rows g and g + 8 of this warp's 16 (0
+  // past T, where q and dO are zero rows, so ds is 0 there)
+  float lse2[2], dl[2];
+  const size_t rbase = ((size_t)b * H + h) * T_len;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = q0 + r0 + g + 8 * hh;
+    lse2[hh] = t < T_len ? lse[rbase + t] * hopper::LOG2E : 0.f;
+    dl[hh] = t < T_len ? delta[rbase + t] : 0.f;
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<1>();  // this tile's group has landed
     __syncthreads();
-    const bool masked = (causal && k0 + BK - 1 > q0) || (k0 + BK > T_len) ||
-                        (q0 + BQ > T_len);
-    float s[4][4], dp[4][4];
-    two_products<D>(Qs, Ks, dOs, Vs, tx, ty, s, dp);
+    if (kt == 0) {
+      // qs = q * scale in fp32, as the plain version forms it
+#pragma unroll 4
+      for (int i = tid; i < 64 * D; i += NT32) {
+        float* x = Qs + (i / D) * LD + i % D;
+        *x *= scale;
+      }
+      __syncthreads();
+    }
+    const int st = kt & 1;
+    const float* Ks = KV + 2 * st * TILE;
+    const float* Vs = Ks + TILE;
+    const int k0 = kt * 64;
+    const bool diag = causal && k0 == q0;
+    // the key n-tiles this warp's rows see: on the diagonal tile, keys up
+    // to row r0 + 15
+    const int nj = diag ? min(max(2 * rg + 2 - NJ * kh, 0), NJ) : NJ;
+    float s[NJ][4], dp[NJ][4];
+    scores<D, NJ>(s, dp, Qs, dOs, Ks, Vs, r0, kb, lane, nj);
+    // The first causal query sees one key: its exact gradient is 0, and
+    // dq there is the rounding left by dp - delta.  On the first key tile
+    // of the first q tile (the rows that see fewer than 64 keys) dp is
+    // summed again as the plain version's fp32 matrix product sums it, so
+    // those rows cancel as its rows do (one tile of a head; the hot loop
+    // keeps no branch for it)
+    const bool exact = causal && q0 == 0 && kt == 0;
+    if (exact) dp_ffma<D, NJ>(dp, dOs, Vs, r0, kb, lane, nj);
+
+    // ds = p * (dp - delta) on the fragments: element (j, e) is row
+    // r0 + g + 8 (e >> 1), key k0 + kb + 8 j + t2 + (e & 1)
+    const bool masked = diag || k0 + 64 > T_len;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const float l = lse_s[r], dl = del_s[r];
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float p = expf(s[i][j] - l);
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        float p = exp2f(fmaf(s[j][e], hopper::LOG2E, -lse2[hh]));
         if (masked) {
-          const int qr = q0 + r, kc = k0 + c;
-          const bool ok = qr < T_len && kc < T_len && (!causal || kc <= qr);
-          p = ok ? p : 0.f;
+          const int key = k0 + kb + 8 * j + t2 + (e & 1);
+          const int t = q0 + r0 + g + 8 * hh;
+          if (key >= T_len || (causal && key > t)) p = 0.f;
         }
-        DS[r * (BK + 1) + c] = round_t<T>(p * (dp[i][j] - dl));
+        s[j][e] = p * (dp[j][e] - dl[hh]);  // ds, unscaled
+      }
+
+    // dQ += dS.K: ds stays in registers as the A fragments, k read in the
+    // matching row order
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j >= nj) continue;
+      float a[4];
+      uint32_t ah[4], al[4];
+      acc_as_a(a, s[j]);
+      split(a, ah, al);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        float bv[2];
+        uint32_t bh[2], bl[2];
+        load_b_pairs<LD>(bv, Ks, kb + 8 * j, 8 * n, lane);
+        split(bv, bh, bl);
+        mma3(acc[n], ah, al, bh, bl);
       }
     }
-    __syncthreads();
-    // dq: rows ty + 16 i, dims tx + 16 j
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float d[4], kv[CT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) d[i] = DS[(ty + 16 * i) * (BK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < CT; ++j) kv[j] = Ks[kk * (D + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(d[i], kv[j], acc[i][j]);
+    __syncthreads();  // every warp is done with this stage's k and v
+    if (kt + 2 < n_kt) {
+      float* Kn = KV + 2 * st * TILE;
+      load_tile_async<D, LD, NT32>(Kn, k + base, row, k0 + 128, T_len, tid);
+      load_tile_async<D, LD, NT32>(Kn + TILE, v + base, row, k0 + 128, T_len,
+                                   tid);
     }
-    __syncthreads();
+    cp_async_commit();
   }
 
+  if constexpr (NJ < 8) {
+    // the second key half's warps hand their sums to the first's through
+    // the free k/v stages, [row group][n][lane] float4 (conflict-free); the
+    // first half's sum plus the second's, in that order
+    float4* red = reinterpret_cast<float4*>(KV);
+    if (kh == 1) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
+      for (int n = 0; n < D / 8; ++n)
+        red[(rg * (D / 8) + n) * 32 + lane] =
+            make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+    }
+    __syncthreads();
+    if (kh == 1) return;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float4 o = red[(rg * (D / 8) + n) * 32 + lane];
+      acc[n][0] += o.x;
+      acc[n][1] += o.y;
+      acc[n][2] += o.z;
+      acc[n][3] += o.w;
+    }
+  }
+
+  // dq = scale * acc; element (n, e) is row r0 + g + 8 (e >> 1), column
+  // 8 n + t2 + (e & 1)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = q0 + r0 + g + 8 * hh;
     if (t >= T_len) continue;
+    float* out = dq + base + (size_t)t * row + t2;
 #pragma unroll
-    for (int j = 0; j < CT; ++j)
-      dq[base + (size_t)t * row + tx + 16 * j] = from_f<T>(acc[i][j] * scale);
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(acc[n][2 * hh] * scale, acc[n][2 * hh + 1] * scale);
   }
 }
 
@@ -354,21 +535,39 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 using hopper::configure;
 
-template <typename T, int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, int B, int T_len,
-              int H, int causal, float scale, cudaStream_t st) {
-  const size_t bytes = dq_smem_floats<D>() * sizeof(float);
+template <int D>
+int launch_dq_tf32x3(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dq, int B, int T_len, int H, int causal,
+                     float scale, cudaStream_t st) {
+  using S = Dq32<D>;
+  // 16-byte copies (cp.async) and 8-byte stores
+  for (const void* p : {q, k, v, dout, static_cast<const void*>(dq)})
+    if (reinterpret_cast<uintptr_t>(p) % 16)
+      return (int)cudaErrorMisalignedAddress;
   static bool configured = false;
-  int rc = configure(flash_bwd_dq_kernel<T, D>, bytes, configured);
+  int rc = configure(flash_bwd_dq_tf32x3_kernel<D>, S::SMEM_BYTES,
+                     configured);
   if (rc) return rc;
-  dim3 grid((T_len + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<T, D><<<grid, NT, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), T_len, H, causal, scale);
+  dim3 grid(H, B, (T_len + 63) / 64);
+  flash_bwd_dq_tf32x3_kernel<D><<<grid, S::THREADS, S::SMEM_BYTES, st>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<float*>(dq), T_len, causal, scale);
   return (int)cudaGetLastError();
+}
+
+int dq_fp32(int D, const void* q, const void* k, const void* v,
+            const void* dout, const void* lse, const void* delta, void* dq,
+            int B, int T_len, int H, int causal, float scale,
+            cudaStream_t st) {
+  switch (D) {
+    case 32: return launch_dq_tf32x3<32>(q, k, v, dout, lse, delta, dq, B, T_len, H, causal, scale, st);
+    case 64: return launch_dq_tf32x3<64>(q, k, v, dout, lse, delta, dq, B, T_len, H, causal, scale, st);
+    case 128: return launch_dq_tf32x3<128>(q, k, v, dout, lse, delta, dq, B, T_len, H, causal, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, int D>
@@ -386,18 +585,6 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dk), static_cast<T*>(dv), T_len, H, causal, scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dq_t(int D, const void* q, const void* k, const void* v, const void* dout,
-         const void* lse, const void* delta, void* dq, int B, int T_len,
-         int H, int causal, float scale, cudaStream_t st) {
-  switch (D) {
-    case 32: return launch_dq<T, 32>(q, k, v, dout, lse, delta, dq, B, T_len, H, causal, scale, st);
-    case 64: return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, B, T_len, H, causal, scale, st);
-    case 128: return launch_dq<T, 128>(q, k, v, dout, lse, delta, dq, B, T_len, H, causal, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 template <typename T>
@@ -738,7 +925,7 @@ extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k,
                             int D, int causal, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dq_t<float>(D, q, k, v, dout, lse, delta, dq, B, T, H, causal, scale, st);
+    return dq_fp32(D, q, k, v, dout, lse, delta, dq, B, T, H, causal, scale, st);
   switch (D) {
     case 32: return launch_dq_wgmma<32>(q, k, v, dout, lse, delta, dq, B, T, H, causal, scale, st);
     case 64: return launch_dq_wgmma<64>(q, k, v, dout, lse, delta, dq, B, T, H, causal, scale, st);

@@ -72,13 +72,16 @@ SHAPES = [(16, 2048, 8, 64, True), (1, 2048, 8, 64, True),
           (16, 2048, 8, 32, True), (16, 2048, 8, 128, True)]
 
 
-def build(out_dir):
-    """Write and compile every variant at once; -> {name: library path},
-    printing each one's ptxas registers and spills."""
-    srcs = {f: open(os.path.join(CSRC, f)).read()
-            for f in ("flash_bwd.cu", "hopper.cuh")}
+def build_variants(variants, tag, out_dir):
+    """Write and compile every variant of ``flash_bwd.cu`` (each
+    substitution found once in it or in a ``csrc/*.cuh`` header) at once;
+    -> {name: library path}, printing the ptxas registers and spills (and
+    wgmma serialization notes) of each function whose name holds ``tag``."""
+    names = ["flash_bwd.cu"] + sorted(f for f in os.listdir(CSRC)
+                                      if f.endswith(".cuh"))
+    srcs = {f: open(os.path.join(CSRC, f)).read() for f in names}
     procs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         files = dict(srcs)
         for old, new in subs:
             hits = [f for f in files for _ in range(files[f].count(old))]
@@ -102,12 +105,12 @@ def build(out_dir):
             raise SystemExit(f"{name}: nvcc failed\n{log}")
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            if "Function properties" in line and "dkv_wgmma" in line:
+            if "Function properties" in line and tag in line:
                 d = line.split("ILi")[1].split("E")[0]
                 print(f"ptxas {name} D={d}: {lines[i + 2].split(':')[-1]}"
                       f"; {lines[i + 1].strip()}", flush=True)
         for line in lines:
-            if "serialized" in line and "dkv_wgmma" in line:
+            if "serialized" in line and tag in line:
                 d = line.split("ILi")[1].split("E")[0]
                 print(f"ptxas {name} D={d}: wgmma serialized "
                       f"({line.split(':')[2].split('for the')[0].strip()})",
@@ -129,7 +132,9 @@ def main() -> int:
         print("dkv_variants: no CUDA device", file=sys.stderr)
         return 2
     fns = {}
-    for name, lib in build(os.path.join(BUILD_DIR, "dkv_variants")).items():
+    for name, lib in build_variants(
+            VARIANTS, "dkv_wgmma",
+            os.path.join(BUILD_DIR, "dkv_variants")).items():
         fn = ctypes.CDLL(lib).flash_bwd_dkv
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
