@@ -15,8 +15,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``HGMMA`` (wgmma) instructions in each library's SASS and in each
    function of it (``cuobjdump -sass``), which must not be 0 in any flash
    kernel's bf16 function; and the number of TF32 ``HMMA`` (``mma.sync``)
-   instructions in each of fp32 dq's functions (three TF32 passes a
-   product on the tensor cores), which must not be 0 either.
+   instructions in each of fp32 dq's and fp32 dk/dv's functions (three
+   TF32 passes a product on the tensor cores), which must not be 0 either.
 2. **Each kernel against its plain version on the card**, at the serving
    and training slices' shapes, with the tolerance stated per kernel; one
    line per kernel and shape with ``kernel_ms`` (device time, from a CUDA
@@ -27,11 +27,12 @@ Phases (any failure exits non-zero and prints no result line):
    flash attention, dequantize + matmul for the int8 matmul, none for
    paged decode).  The training-shape rows of kernels 1-3 also print
    their times before the bf16 tensor-core redesign (``earlier``), for
-   reference, and fp32 dq the time of the CUDA-core kernel its three-pass
-   TF32 design replaced.  The flash backward (kernels 2 and 3) prints its
-   worst error/limit per kernel and dtype, and checks that two fp32 calls
-   give bit-equal dq; it has a second witness in fp32: ``FlashAttention``'s
-   grads against autograd of the blockwise path.
+   reference, and fp32 dq and dk/dv the time of the CUDA-core kernel their
+   three-pass TF32 design replaced.  The flash backward (kernels 2 and 3)
+   prints its worst error/limit per kernel and dtype, and checks that two
+   fp32 calls give bit-equal dq, dk and dv; it has a second witness in
+   fp32: ``FlashAttention``'s grads against autograd of the blockwise
+   path.
 3. **The serving path at full width**, through the CLI's ``serve`` (what
    ``python -m theanompi_torch.serving`` runs) — ``TransformerLM`` dim
    512, 8 heads, 8 layers, seq_len 2048, vocab 32768, max_batch 8,
@@ -94,8 +95,8 @@ SERVE_ARGS = ["--requests", "16", "--prompt-len", "100", "--turns", "8",
 AGREE_MIN = {"float32": 0.99, "bfloat16": 0.95}
 #: kernels 1-3 at the training shape as CUDA-core kernels, before their
 #: tensor-core redesign (PERF.md's kernel table, NVIDIA H100 80GB HBM3 at
-#: 700 W, the last run of each before it; fp32 kernels 1 and 3 are still
-#: CUDA-core kernels): printed beside today's times, checked against
+#: 700 W, the last run of each before it; fp32 kernel 1 is still a
+#: CUDA-core kernel): printed beside today's times, checked against
 #: nothing
 EARLIER_TRAIN_MS = {("flash_fwd", "bfloat16"): 3.3461,
                     ("flash_fwd", "float32"): 3.3415,
@@ -200,7 +201,8 @@ def sass_mma(tool, lib):
 def check_hgmma(K):
     """The number of HGMMA (wgmma) instructions in each flash kernel's bf16
     function (``<name>_wgmma_kernel<D>``, one per head dim), and of TF32
-    HMMA instructions in fp32 dq's (``flash_bwd_dq_tf32x3_kernel<D>``);
+    HMMA instructions in fp32 dq's and dk/dv's
+    (``flash_bwd_dq_tf32x3_kernel<D>``, ``flash_bwd_dkv_tf32x3_kernel<D>``);
     fails if one has none (where ``cuobjdump`` exists)."""
     import re
     import shutil
@@ -221,7 +223,7 @@ def check_hgmma(K):
         if not k.source.startswith("flash_"):
             continue
         kinds = [("_wgmma_kernel", 0, "HGMMA", "bf16")]
-        if k.name == "flash_bwd_dq":
+        if k.name in ("flash_bwd_dq", "flash_bwd_dkv"):
             kinds.append(("_tf32x3_kernel", 1, "TF32 HMMA", "fp32"))
         for suffix, col, what, dt in kinds:
             fns = {fn: n[col] for fn, n in libs[lib].items()
@@ -512,13 +514,15 @@ def check_flash_bwd(torch):
         shape = (f"B={b} T={t} H={h} D={d} "
                  f"{'causal' if causal else 'full'}")
         if dn == "float32" and b == TRAIN_ATTN["b"]:
-            # one CTA owns its rows of dq, summed in a fixed order
-            again = flash_attention_bwd(q, k, v, out, lse, g, causal)[0]
+            # one CTA owns its rows of dq (of dk and dv), summed in a fixed
+            # order
+            again = flash_attention_bwd(q, k, v, out, lse, g, causal)
             torch.cuda.synchronize()
-            check(torch.equal(again, got[0]), f"flash bwd fp32 {shape}: two "
-                  f"calls give different dq")
-            print(f"check flash_bwd_dq float32 {shape}: two calls give "
-                  f"bit-equal dq", flush=True)
+            for name, x, y in zip(("dq", "dk", "dv"), again, got):
+                check(torch.equal(x, y), f"flash bwd fp32 {shape}: two "
+                      f"calls give different {name}")
+            print(f"check flash_bwd_dq and flash_bwd_dkv float32 {shape}: "
+                  f"two calls give bit-equal dq, dk and dv", flush=True)
         if not (causal and d == 64 and t in (128, 1024, 2048)):
             continue
         dq_call, dkv_call = _bwd_launchers(torch, q, k, v, out, lse, g,

@@ -80,12 +80,26 @@
 // version's fp32 product sums it: see the kernel.  Deterministic: each CTA
 // owns its rows of dq, summed in a fixed order.
 //
-// fp32 flash_bwd_dkv: math on the CUDA cores.  One CTA of 256 threads per
-// (64-row k tile, head, batch), looping over q tiles from the first one
-// that can see the k tile to the end of T; dk and dv stay in registers.
-// Tiles sit in shared memory as fp32 with padded rows against bank
-// conflicts; each thread owns a 4 x 4 block of the score tile and a
-// 4 x D/16 block of each accumulator.
+// fp32 flash_bwd_dkv (flash_bwd_dkv_tf32x3_kernel): kernel 2's fp32 design
+// with the roles of the two pairs swapped, as in bf16.  One CTA of eight
+// warps per (64 key rows, head, batch), key tile 0 (which sees every q tile)
+// first in the causal case: four key-row groups of 16, each split between
+// two warps that take 32 of the 64 queries of every q tile (their dk and dv
+// are summed once, at the end, through the free stages, in a fixed order:
+// deterministic).  k and v land once; q, dO and each stage's 64 values of
+// lse and delta stream from the first q tile that sees the keys to the end
+// of T through a two-stage cp.async ring, the tiles as fp32 rows of D + 4
+// floats.  Keys are the accumulators' rows: per q tile a warp forms its
+// 16 x 32 blocks of S^T = k.qs^T and dP^T = v.dO^T, P^T and dS^T on those
+// fragments (lse and delta by the column), and dV += P^T.dO and
+// dK += dS^T.qs with P^T and dS^T in registers as A fragments (acc_as_a,
+// dO's and q's rows read in the pair order).  qs = q * scale in fp32: each
+// q element is scaled as it is loaded for a product, before its split.  On
+// the diagonal tile a warp skips the query n-tiles that lie wholly before
+// its keys.  The last causal keys (the diagonal tile of the last key tile)
+// take dp in FFMA, as the plain version's fp32 product sums it: the last
+// key's dk is one term whose dp - delta may cancel (see the kernel, and
+// tests/test_torch_tf32x3_dkv.py, which emulates the kernel on the CPU).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -95,69 +109,6 @@
 #include "tf32x3.cuh"
 
 namespace {
-
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 256;
-
-// the CUDA-core kernel below (fp32 dk/dv) and its helpers: fp32 only
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-// rounding to the input dtype, kept in fp32 registers
-template <typename T> __device__ __forceinline__ float round_t(float v);
-template <> __device__ __forceinline__ float round_t<float>(float v) { return v; }
-
-// Load rows [t0, t0 + 64) of one head of x ([B, T, H, D]) into a padded
-// fp32 tile [64][D + 1], zeros past T; mul (rounded to T first) scales
-// each element in the input dtype when scaled is set.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ x,
-                                          size_t base, size_t row, int t0,
-                                          int T_len, bool scaled, float mul) {
-  for (int i = threadIdx.x; i < 64 * D; i += NT) {
-    const int r = i / D, c = i % D;
-    const int t = t0 + r;
-    float v = t < T_len ? to_f<T>(x[base + (size_t)t * row + c]) : 0.f;
-    if (scaled) v = round_t<T>(v * mul);
-    dst[r * (D + 1) + c] = v;
-  }
-}
-
-// s = A . B^T and dp = C . E^T over one 64 x 64 tile: rows ty + 16 i of
-// A and C, rows tx + 16 j of B and E.
-template <int D>
-__device__ __forceinline__ void two_products(const float* A, const float* Bm,
-                                             const float* C, const float* E,
-                                             int tx, int ty, float s[4][4],
-                                             float dp[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[4], c[4], b[4], e[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = A[(ty + 16 * i) * (D + 1) + d];
-      c[i] = C[(ty + 16 * i) * (D + 1) + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      b[j] = Bm[(tx + 16 * j) * (D + 1) + d];
-      e[j] = E[(tx + 16 * j) * (D + 1) + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(a[i], b[j], s[i][j]);
-        dp[i][j] = fmaf(c[i], e[j], dp[i][j]);
-      }
-  }
-}
 
 // -- fp32 dq: three-pass TF32 mma.sync on the tensor cores --------------------
 
@@ -177,54 +128,60 @@ struct Dq32 {
   static constexpr size_t SMEM_BYTES = 6 * (size_t)TILE * sizeof(float);
 };
 
-// s[j] = rows r0 .. r0 + 15 of Qs . keys kb + 8 j .. kb + 8 j + 7 of Ks,
-// and dp[j] the same of dOs and Vs, over D, for j < nj (the rest stay 0),
-// in three TF32 passes
+// c1[j] = rows r0 .. r0 + 15 of A1 . rows nb + 8 j .. nb + 8 j + 7 of B1
+// (each B1 element times b1_mul in fp32 before its split), and c2[j] the
+// same of A2 and B2, over D, for j0 <= j < j1 (the rest stay 0), in three
+// TF32 passes: S = qs.k^T and dP = dO.v^T in dq, S^T = k.qs^T and
+// dP^T = v.dO^T in dk/dv.  Tiles in rows of D + 4 floats (Dq32, Dkv32)
 template <int D, int NJ>
-__device__ __forceinline__ void scores(float (&s)[NJ][4], float (&dp)[NJ][4],
-                                       const float* Qs, const float* dOs,
-                                       const float* Ks, const float* Vs,
-                                       int r0, int kb, int lane, int nj) {
-  constexpr int LD = Dq32<D>::LD;
+__device__ __forceinline__ void two_products(float (&c1)[NJ][4],
+                                             float (&c2)[NJ][4],
+                                             const float* A1, const float* A2,
+                                             const float* B1, const float* B2,
+                                             int r0, int nb, int lane, int j0,
+                                             int j1, float b1_mul) {
+  constexpr int LD = D + 4;
   using namespace tf32x3;
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) c1[j][e] = c2[j][e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < D; kk += 8) {
     float a[4], o[4];
     uint32_t ah[4], al[4], oh[4], ol[4];
-    load_a<LD>(a, Qs, r0, kk, lane);
+    load_a<LD>(a, A1, r0, kk, lane);
     split(a, ah, al);
-    load_a<LD>(o, dOs, r0, kk, lane);
+    load_a<LD>(o, A2, r0, kk, lane);
     split(o, oh, ol);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      if (j >= nj) continue;
+      if (j < j0 || j >= j1) continue;
       float bv[2];
       uint32_t bh[2], bl[2];
-      load_b_t<LD>(bv, Ks, kb + 8 * j, kk, lane);
+      load_b_t<LD>(bv, B1, nb + 8 * j, kk, lane);
+      bv[0] *= b1_mul;
+      bv[1] *= b1_mul;
       split(bv, bh, bl);
-      mma3(s[j], ah, al, bh, bl);
-      load_b_t<LD>(bv, Vs, kb + 8 * j, kk, lane);
+      mma3(c1[j], ah, al, bh, bl);
+      load_b_t<LD>(bv, B2, nb + 8 * j, kk, lane);
       split(bv, bh, bl);
-      mma3(dp[j], oh, ol, bh, bl);
+      mma3(c2[j], oh, ol, bh, bl);
     }
   }
 }
 
-// dp[j] of scores() again in fp32 FFMA, each element one fma chain over d
-// in order from 0, as an fp32 matrix product sums it (for the first causal
-// rows, see the kernel)
+// c2[j] of two_products() again in fp32 FFMA, each element one fma chain
+// over d in order from 0, as an fp32 matrix product sums it (for the first
+// causal rows of dq and the last causal keys of dk/dv, see the kernels)
 template <int D, int NJ>
-__device__ __forceinline__ void dp_ffma(float (&dp)[NJ][4], const float* dOs,
-                                        const float* Vs, int r0, int kb,
-                                        int lane, int nj) {
-  constexpr int LD = Dq32<D>::LD;
-  const float* a0 = dOs + (r0 + lane / 4) * LD;
+__device__ __forceinline__ void dp_ffma(float (&dp)[NJ][4], const float* A2,
+                                        const float* B2, int r0, int nb,
+                                        int lane, int j0, int j1) {
+  constexpr int LD = D + 4;
+  const float* a0 = A2 + (r0 + lane / 4) * LD;
   const float* a1 = a0 + 8 * LD;
-  const float* b0 = Vs + (kb + 2 * (lane % 4)) * LD;
+  const float* b0 = B2 + (nb + 2 * (lane % 4)) * LD;
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -234,7 +191,7 @@ __device__ __forceinline__ void dp_ffma(float (&dp)[NJ][4], const float* dOs,
     const float x0 = a0[d], x1 = a1[d];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      if (j >= nj) continue;
+      if (j < j0 || j >= j1) continue;
       const float y0 = b0[8 * j * LD + d], y1 = b0[(8 * j + 1) * LD + d];
       dp[j][0] = fmaf(x0, y0, dp[j][0]);
       dp[j][1] = fmaf(x0, y1, dp[j][1]);
@@ -327,7 +284,7 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
     // to row r0 + 15
     const int nj = diag ? min(max(2 * rg + 2 - NJ * kh, 0), NJ) : NJ;
     float s[NJ][4], dp[NJ][4];
-    scores<D, NJ>(s, dp, Qs, dOs, Ks, Vs, r0, kb, lane, nj);
+    two_products<D, NJ>(s, dp, Qs, dOs, Ks, Vs, r0, kb, lane, 0, nj, 1.f);
     // The first causal query sees one key: its exact gradient is 0, and
     // dq there is the rounding left by dp - delta.  On the first key tile
     // of the first q tile (the rows that see fewer than 64 keys) dp is
@@ -335,7 +292,7 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
     // those rows cancel as its rows do (one tile of a head; the hot loop
     // keeps no branch for it)
     const bool exact = causal && q0 == 0 && kt == 0;
-    if (exact) dp_ffma<D, NJ>(dp, dOs, Vs, r0, kb, lane, nj);
+    if (exact) dp_ffma<D, NJ>(dp, dOs, Vs, r0, kb, lane, 0, nj);
 
     // ds = p * (dp - delta) on the fragments: element (j, e) is row
     // r0 + g + 8 (e >> 1), key k0 + kb + 8 j + t2 + (e & 1)
@@ -419,116 +376,233 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
   }
 }
 
+// -- fp32 dk, dv: the same products with the roles of the two pairs swapped --------
+
+// Eight warps: warp w takes the 16 key rows 16 (w % 4) .. and the 32 queries
+// 32 (w / 4) .. of every 64-query tile; the two query halves' dk and dv are
+// summed at the end (four warps, each taking all 64 queries, ran 5 % slower
+// at D = 64 and 2.6x at D = 128: kernels/dkv32_variants.py).  Two stages of
+// q, dO, lse and delta in flight.
 template <int D>
-constexpr size_t dkv_smem_floats() {
-  return 4 * (size_t)64 * (D + 1) + 2 * (size_t)BQ * (BK + 1) + 2 * BQ;
+struct Dkv32 {
+  static constexpr int LD = D + 4;      // floats per tile row (tf32x3.cuh)
+  static constexpr int TILE = 64 * LD;  // floats per tile
+  static constexpr int WARPS_A_GROUP = 2;  // warps per 16-key row group
+  static constexpr int THREADS = 128 * WARPS_A_GROUP;
+  static constexpr int NJ = 8 / WARPS_A_GROUP;  // 8-query n-tiles a warp
+  // registers: two CTAs an SM at up to 128 a thread (one at D = 128, where
+  // shared memory holds one).  At D = 64 ptxas spills some 48 bytes there;
+  // one CTA an SM, with no spill, ran 8 % slower at the training shape
+  static constexpr int MIN_BLOCKS = D < 128 ? 2 : 1;
+  // k and v, then q and dO for each of two stages, then each stage's 64
+  // values of lse and of delta
+  static constexpr size_t SMEM_BYTES =
+      (6 * (size_t)TILE + 4 * 64) * sizeof(float);
+};
+
+// Rows t0 .. t0 + 63 of one (b, h) row of lse and of delta ([B, H, T]
+// fp32) into 64 floats each, zeros past T, by threads 0 .. 31.  T is a
+// multiple of 16, so each 16-byte copy lies wholly before T or past it.
+__device__ __forceinline__ void load_vecs_async(float* dst,
+                                                const float* lse_row,
+                                                const float* delta_row,
+                                                int t0, int T_len, int tid) {
+  if (tid >= 32) return;
+  const float* src = tid < 16 ? lse_row : delta_row;
+  const int c = 4 * (tid % 16);
+  const bool in = t0 + c < T_len;
+  tf32x3::cp_async16(dst + 64 * (tid / 16) + c, in ? src + t0 + c : src, in);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int T_len, int H, int causal,
-                     float scale) {
-  constexpr int CT = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;                      // [BK][D + 1]
-  float* Vs = Ks + 64 * (D + 1);         // [BK][D + 1]
-  float* Qs = Vs + 64 * (D + 1);         // [BQ][D + 1], q * scale
-  float* dOs = Qs + 64 * (D + 1);        // [BQ][D + 1]
-  float* P = dOs + 64 * (D + 1);         // [BQ][BK + 1], p in dO's dtype
-  float* DS = P + BQ * (BK + 1);         // [BQ][BK + 1], ds
-  float* lse_s = DS + BQ * (BK + 1);     // [BQ]
-  float* del_s = lse_s + BQ;             // [BQ]
-
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int k0 = kt * BK;
+template <int D>
+__global__ void __launch_bounds__(Dkv32<D>::THREADS, Dkv32<D>::MIN_BLOCKS)
+flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int T_len, int causal, float scale) {
+  using S = Dkv32<D>;
+  using namespace tf32x3;
+  constexpr int LD = S::LD, TILE = S::TILE, NT32 = S::THREADS, NJ = S::NJ;
+  constexpr int N8 = D / 8;
+  extern __shared__ __align__(16) float smem_f[];
+  float* Ks = smem_f;
+  float* Vs = smem_f + TILE;
+  float* QD = smem_f + 2 * TILE;  // stage s: q at QD + 2 s TILE, dO after it
+  float* LV = smem_f + 6 * TILE;  // stage s: lse at LV + 128 s, delta after
+  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  // key tile 0 sees every q tile: in the causal case the heaviest go first
+  const int k0 = blockIdx.z * 64;
+  const int qt0 = causal ? blockIdx.z : 0;  // the first q tile that sees it
+  const int n_qt = (T_len + 63) / 64 - qt0;
   const size_t row = (size_t)H * D;
   const size_t base = (size_t)b * T_len * row + (size_t)h * D;
-  const size_t rbase = ((size_t)b * H + h) * T_len;
-  const float scale_t = round_t<T>(scale);
+  const float* lse_row = lse + ((size_t)b * H + h) * T_len;
+  const float* delta_row = delta + ((size_t)b * H + h) * T_len;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = warp % 4, qh = warp / 4;
+  const int r0 = 16 * rg;      // this warp's keys of the tile: r0 .. r0 + 15
+  const int qb = 8 * NJ * qh;  // its queries of each tile: qb .. qb + 8 NJ - 1
+  const int g = lane / 4, t2 = 2 * (lane % 4);
 
-  load_tile<T, D>(Ks, k, base, row, k0, T_len, false, 1.f);
-  load_tile<T, D>(Vs, v, base, row, k0, T_len, false, 1.f);
-  float adk[4][CT], adv[4][CT];
+  // group 0: k, v and stage 0; group 1: stage 1 (empty if there is none)
+  load_tile_async<D, LD, NT32>(Ks, k + base, row, k0, T_len, tid);
+  load_tile_async<D, LD, NT32>(Vs, v + base, row, k0, T_len, tid);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CT; ++j) adk[i][j] = adv[i][j] = 0.f;
-
-  const int nq = (T_len + BQ - 1) / BQ;
-  // the first q tile holding a row >= k0 (causal); every tile otherwise
-  const int qt_begin = causal ? k0 / BQ : 0;
-  for (int qt = qt_begin; qt < nq; ++qt) {
-    const int q0 = qt * BQ;
-    load_tile<T, D>(Qs, q, base, row, q0, T_len, true, scale_t);
-    load_tile<T, D>(dOs, dout, base, row, q0, T_len, false, 1.f);
-    if (tid < BQ) {
-      const bool in = q0 + tid < T_len;
-      lse_s[tid] = in ? lse[rbase + q0 + tid] : 0.f;
-      del_s[tid] = in ? delta[rbase + q0 + tid] : 0.f;
+  for (int st = 0; st < 2; ++st) {
+    if (st < n_qt) {
+      const int t0 = (qt0 + st) * 64;
+      load_tile_async<D, LD, NT32>(QD + 2 * st * TILE, q + base, row, t0,
+                                   T_len, tid);
+      load_tile_async<D, LD, NT32>(QD + (2 * st + 1) * TILE, dout + base, row,
+                                   t0, T_len, tid);
+      load_vecs_async(LV + 128 * st, lse_row, delta_row, t0, T_len, tid);
     }
-    __syncthreads();
-    const bool masked = (causal && k0 + BK - 1 > q0) || (k0 + BK > T_len) ||
-                        (q0 + BQ > T_len);
-    // scores: q rows ty + 16 i, keys tx + 16 j
-    float s[4][4], dp[4][4];
-    two_products<D>(Qs, Ks, dOs, Vs, tx, ty, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const float l = lse_s[r], dl = del_s[r];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float p = expf(s[i][j] - l);
-        if (masked) {
-          const int qr = q0 + r, kc = k0 + c;
-          const bool ok = qr < T_len && kc < T_len && (!causal || kc <= qr);
-          p = ok ? p : 0.f;
-        }
-        P[r * (BK + 1) + c] = round_t<T>(p);
-        DS[r * (BK + 1) + c] = round_t<T>(p * (dp[i][j] - dl));
-      }
-    }
-    __syncthreads();
-    // dv, dk: key rows ty + 16 i, dims tx + 16 j
-#pragma unroll 4
-    for (int r = 0; r < BQ; ++r) {
-      float pp[4], dd[4], o[CT], qq[CT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pp[i] = P[r * (BK + 1) + ty + 16 * i];
-        dd[i] = DS[r * (BK + 1) + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        o[j] = dOs[r * (D + 1) + tx + 16 * j];
-        qq[j] = Qs[r * (D + 1) + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < CT; ++j) {
-          adv[i][j] = fmaf(pp[i], o[j], adv[i][j]);
-          adk[i][j] = fmaf(dd[i], qq[j], adk[i][j]);
-        }
-    }
-    __syncthreads();
+    cp_async_commit();
   }
 
+  float dka[N8][4], dva[N8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty + 16 * i;
+  for (int n = 0; n < N8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int it = 0; it < n_qt; ++it) {
+    cp_async_wait<1>();  // this stage's group has landed
+    __syncthreads();
+    const int st = it & 1;
+    const float* Qs = QD + 2 * st * TILE;
+    const float* dOs = Qs + TILE;
+    const float* lse_s = LV + 128 * st;
+    const float* del_s = lse_s + 64;
+    const int q0 = (qt0 + it) * 64;
+    const bool diag = causal && q0 == k0;
+    // the query n-tiles this warp's keys see: on the diagonal tile, from
+    // the first that holds a query at or after key r0 (a first index: the
+    // n-tiles before it are wholly above the diagonal)
+    const int j0 = diag ? min(max((r0 - qb) / 8, 0), NJ) : 0;
+    float s[NJ][4], dp[NJ][4];
+    // S^T and dP^T, q's elements scaled to qs = q * scale in fp32 as they
+    // are loaded, before their split
+    two_products<D, NJ>(s, dp, Ks, Vs, Qs, dOs, r0, qb, lane, j0, NJ, scale);
+    // The last causal key sees one query, so its dk is one term, dS.qs, and
+    // dS = p * (dp - delta) may cancel to a small part of dp: there the
+    // limit, set by the row's own size, is finer than three TF32 passes
+    // leave dp.  On the diagonal tile of the last key tile (the keys that
+    // see at most 64 queries) dp is summed again as the plain version's
+    // fp32 matrix product sums it, so those keys round as its keys do (one
+    // tile of a head; the hot loop keeps no branch for it)
+    const bool exact = diag && k0 + 64 >= T_len;
+    if (exact) dp_ffma<D, NJ>(dp, Vs, dOs, r0, qb, lane, j0, NJ);
+
+    // P^T and dS^T = P^T * (dP^T - delta) on the fragments: element (j, e)
+    // is key k0 + r0 + g + 8 (e >> 1), query q0 + qb + 8 j + t2 + (e & 1),
+    // so lse and delta go by the column.  Queries past T are zero rows of q
+    // with lse 0 there, p = 1: masked
+    const bool masked = diag || q0 + 64 > T_len;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int qc = qb + 8 * j + t2;
+      const float2 l = *reinterpret_cast<const float2*>(lse_s + qc);
+      const float2 dl = *reinterpret_cast<const float2*>(del_s + qc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[j][e], hopper::LOG2E,
+                             -(e & 1 ? l.y : l.x) * hopper::LOG2E));
+        if (masked) {
+          const int key = k0 + r0 + g + 8 * (e >> 1);
+          const int query = q0 + qc + (e & 1);
+          if (query >= T_len || (causal && key > query)) p = 0.f;
+        }
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - (e & 1 ? dl.y : dl.x));
+      }
+    }
+
+    // dV += P^T.dO and dK += dS^T.qs: P^T and dS^T stay in registers as the
+    // A fragments, dO's and q's rows read in the matching order
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j < j0) continue;
+      float a[4];
+      uint32_t ph[4], pl[4], dh[4], dlo[4];
+      acc_as_a(a, s[j]);
+      split(a, ph, pl);
+      acc_as_a(a, dp[j]);
+      split(a, dh, dlo);
+#pragma unroll
+      for (int n = 0; n < N8; ++n) {
+        float bv[2];
+        uint32_t bh[2], bl[2];
+        load_b_pairs<LD>(bv, dOs, qb + 8 * j, 8 * n, lane);
+        split(bv, bh, bl);
+        mma3(dva[n], ph, pl, bh, bl);
+        load_b_pairs<LD>(bv, Qs, qb + 8 * j, 8 * n, lane);
+        bv[0] *= scale;
+        bv[1] *= scale;
+        split(bv, bh, bl);
+        mma3(dka[n], dh, dlo, bh, bl);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+    if (it + 2 < n_qt) {
+      const int t0 = q0 + 128;
+      float* Qn = QD + 2 * st * TILE;
+      load_tile_async<D, LD, NT32>(Qn, q + base, row, t0, T_len, tid);
+      load_tile_async<D, LD, NT32>(Qn + TILE, dout + base, row, t0, T_len,
+                                   tid);
+      load_vecs_async(LV + 128 * st, lse_row, delta_row, t0, T_len, tid);
+    }
+    cp_async_commit();
+  }
+
+  if constexpr (NJ < 8) {
+    // the second query half's warps hand their sums to the first's through
+    // the free stages, [dk | dv][row group][n][lane] float4 (conflict-free);
+    // the first half's sum plus the second's, in that order
+    float4* red = reinterpret_cast<float4*>(QD);
+    if (qh == 1) {
+#pragma unroll
+      for (int n = 0; n < N8; ++n) {
+        red[(rg * N8 + n) * 32 + lane] =
+            make_float4(dka[n][0], dka[n][1], dka[n][2], dka[n][3]);
+        red[((4 + rg) * N8 + n) * 32 + lane] =
+            make_float4(dva[n][0], dva[n][1], dva[n][2], dva[n][3]);
+      }
+    }
+    __syncthreads();
+    if (qh == 1) return;
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      const float4 ok = red[(rg * N8 + n) * 32 + lane];
+      const float4 ov = red[((4 + rg) * N8 + n) * 32 + lane];
+      dka[n][0] += ok.x;
+      dka[n][1] += ok.y;
+      dka[n][2] += ok.z;
+      dka[n][3] += ok.w;
+      dva[n][0] += ov.x;
+      dva[n][1] += ov.y;
+      dva[n][2] += ov.z;
+      dva[n][3] += ov.w;
+    }
+  }
+
+  // element (n, e) is key row k0 + r0 + g + 8 (e >> 1), column
+  // 8 n + t2 + (e & 1)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = k0 + r0 + g + 8 * hh;
     if (t >= T_len) continue;
+    const size_t at = base + (size_t)t * row + t2;
 #pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      const size_t at = base + (size_t)t * row + tx + 16 * j;
-      dk[at] = from_f<T>(adk[i][j]);
-      dv[at] = from_f<T>(adv[i][j]);
+    for (int n = 0; n < N8; ++n) {
+      *reinterpret_cast<float2*>(dk + at + 8 * n) =
+          make_float2(dka[n][2 * hh], dka[n][2 * hh + 1]);
+      *reinterpret_cast<float2*>(dv + at + 8 * n) =
+          make_float2(dva[n][2 * hh], dva[n][2 * hh + 1]);
     }
   }
 }
@@ -570,32 +644,38 @@ int dq_fp32(int D, const void* q, const void* k, const void* v,
   }
 }
 
-template <typename T, int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv, int B,
-               int T_len, int H, int causal, float scale, cudaStream_t st) {
-  const size_t bytes = dkv_smem_floats<D>() * sizeof(float);
+template <int D>
+int launch_dkv_tf32x3(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dk, void* dv, int B, int T_len, int H, int causal,
+                      float scale, cudaStream_t st) {
+  using S = Dkv32<D>;
+  // 16-byte copies (cp.async) and 8-byte stores
+  for (const void* p : {q, k, v, dout, lse, delta, static_cast<const void*>(dk),
+                        static_cast<const void*>(dv)})
+    if (reinterpret_cast<uintptr_t>(p) % 16)
+      return (int)cudaErrorMisalignedAddress;
   static bool configured = false;
-  int rc = configure(flash_bwd_dkv_kernel<T, D>, bytes, configured);
+  int rc = configure(flash_bwd_dkv_tf32x3_kernel<D>, S::SMEM_BYTES,
+                     configured);
   if (rc) return rc;
-  dim3 grid((T_len + BK - 1) / BK, H, B);
-  flash_bwd_dkv_kernel<T, D><<<grid, NT, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  dim3 grid(H, B, (T_len + 63) / 64);
+  flash_bwd_dkv_tf32x3_kernel<D><<<grid, S::THREADS, S::SMEM_BYTES, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), T_len, H, causal, scale);
+      static_cast<float*>(dk), static_cast<float*>(dv), T_len, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dkv_t(int D, const void* q, const void* k, const void* v,
-          const void* dout, const void* lse, const void* delta, void* dk,
-          void* dv, int B, int T_len, int H, int causal, float scale,
-          cudaStream_t st) {
+int dkv_fp32(int D, const void* q, const void* k, const void* v,
+             const void* dout, const void* lse, const void* delta, void* dk,
+             void* dv, int B, int T_len, int H, int causal, float scale,
+             cudaStream_t st) {
   switch (D) {
-    case 32: return launch_dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H, causal, scale, st);
-    case 64: return launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H, causal, scale, st);
-    case 128: return launch_dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H, causal, scale, st);
+    case 32: return launch_dkv_tf32x3<32>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H, causal, scale, st);
+    case 64: return launch_dkv_tf32x3<64>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H, causal, scale, st);
+    case 128: return launch_dkv_tf32x3<128>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -942,7 +1022,7 @@ extern "C" int flash_bwd_dkv(int dtype, const void* q, const void* k,
                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dkv_t<float>(D, q, k, v, dout, lse, delta, dk, dv, B, T, H, causal, scale, st);
+    return dkv_fp32(D, q, k, v, dout, lse, delta, dk, dv, B, T, H, causal, scale, st);
   switch (D) {
     case 32: return launch_dkv_wgmma<32>(q, k, v, dout, lse, delta, dk, dv, B, T, H, causal, scale, st);
     case 64: return launch_dkv_wgmma<64>(q, k, v, dout, lse, delta, dk, dv, B, T, H, causal, scale, st);

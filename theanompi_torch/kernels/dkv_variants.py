@@ -72,23 +72,30 @@ SHAPES = [(16, 2048, 8, 64, True), (1, 2048, 8, 64, True),
           (16, 2048, 8, 32, True), (16, 2048, 8, 128, True)]
 
 
-def build_variants(variants, tag, out_dir):
-    """Write and compile every variant of ``flash_bwd.cu`` (each
-    substitution found once in it or in a ``csrc/*.cuh`` header) at once;
-    -> {name: library path}, printing the ptxas registers and spills (and
-    wgmma serialization notes) of each function whose name holds ``tag``."""
+def variant_sources(name, subs):
+    """``flash_bwd.cu`` and the ``csrc/*.cuh`` headers with each (old, new)
+    substitution of ``subs`` made; -> {file name: text}.  Raises
+    SystemExit unless each old text is found exactly once in them all."""
     names = ["flash_bwd.cu"] + sorted(f for f in os.listdir(CSRC)
                                       if f.endswith(".cuh"))
-    srcs = {f: open(os.path.join(CSRC, f)).read() for f in names}
+    files = {f: open(os.path.join(CSRC, f)).read() for f in names}
+    for old, new in subs:
+        hits = [f for f in files for _ in range(files[f].count(old))]
+        if len(hits) != 1:
+            raise SystemExit(f"{name}: {old[:50]!r} found {len(hits)} "
+                             f"times, not once")
+        files[hits[0]] = files[hits[0]].replace(old, new)
+    return files
+
+
+def build_variants(variants, tag, out_dir):
+    """Write and compile every variant of ``flash_bwd.cu`` (see
+    ``variant_sources``) at once; -> {name: library path}, printing the
+    ptxas registers and spills (and wgmma serialization notes) of each
+    function whose name holds ``tag``."""
     procs = {}
     for name, subs in variants.items():
-        files = dict(srcs)
-        for old, new in subs:
-            hits = [f for f in files for _ in range(files[f].count(old))]
-            if len(hits) != 1:
-                raise SystemExit(f"{name}: {old[:50]!r} found {len(hits)} "
-                                 f"times, not once")
-            files[hits[0]] = files[hits[0]].replace(old, new)
+        files = variant_sources(name, subs)
         d = os.path.join(out_dir, name)
         os.makedirs(d, exist_ok=True)
         for f, text in files.items():

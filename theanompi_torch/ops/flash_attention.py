@@ -13,10 +13,10 @@ CPU tensor runs :func:`flash_attention_ref` / :func:`flash_attention_bwd_ref`.
 backward, ``lse`` not differentiable.
 
 In bf16, kernels 1-3 run on the tensor cores with TMA loads: their
-operands, and the backward's lse, must be 16-byte aligned.  In fp32, kernel
-2 runs on the tensor cores too (three TF32 passes a product, fp32-accurate)
-and loads 16 bytes at a time: the backward's q, k, v and d_out must be
-16-byte aligned in fp32 as well.
+operands, and the backward's lse, must be 16-byte aligned.  In fp32, kernels
+2 and 3 run on the tensor cores too (three TF32 passes a product,
+fp32-accurate) and load 16 bytes at a time: the backward's q, k, v, d_out
+and lse must be 16-byte aligned in fp32 as well.
 """
 
 from __future__ import annotations
@@ -89,8 +89,8 @@ def flash_attention_ref(q, k, v, causal: bool = False):
 
 
 def _check_aligned(name, *tensors):
-    """The bf16 kernels read and write through TMA, and fp32 kernel 2 with
-    16-byte copies: both want 16-byte aligned base addresses."""
+    """The bf16 kernels read and write through TMA, and fp32 kernels 2 and
+    3 with 16-byte copies: both want 16-byte aligned base addresses."""
     for x in tensors:
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: data_ptr() of a tensor of shape "
@@ -200,9 +200,9 @@ def flash_attention_bwd(q, k, v, out, lse, d_out, causal: bool = False):
     delta = _delta(out, d_out)
     check_cuda("flash_attention_bwd", q, k, v, d_out, lse, delta)
     dtype = 0 if q.dtype == torch.float32 else 1
-    # bf16: TMA (lse too); fp32: kernel 2's 16-byte cp.async copies
-    _check_aligned("flash_attention_bwd", q, k, v, d_out,
-                   *((lse,) if dtype else ()))
+    # bf16: TMA; fp32: kernels 2 and 3's 16-byte cp.async copies (kernel
+    # 3's of lse too)
+    _check_aligned("flash_attention_bwd", q, k, v, d_out, lse)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
