@@ -15,8 +15,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``HGMMA`` (wgmma) instructions in each library's SASS and in each
    function of it (``cuobjdump -sass``), which must not be 0 in any flash
    kernel's bf16 function; and the number of TF32 ``HMMA`` (``mma.sync``)
-   instructions in each of fp32 dq's and fp32 dk/dv's functions (three
-   TF32 passes a product on the tensor cores), which must not be 0 either.
+   instructions in each fp32 flash kernel's function, forward, dq and
+   dk/dv (three TF32 passes a product on the tensor cores), which must not
+   be 0 either.
 2. **Each kernel against its plain version on the card**, at the serving
    and training slices' shapes, with the tolerance stated per kernel; one
    line per kernel and shape with ``kernel_ms`` (device time, from a CUDA
@@ -27,12 +28,14 @@ Phases (any failure exits non-zero and prints no result line):
    flash attention, dequantize + matmul for the int8 matmul, none for
    paged decode).  The training-shape rows of kernels 1-3 also print
    their times before the bf16 tensor-core redesign (``earlier``), for
-   reference, and fp32 dq and dk/dv the time of the CUDA-core kernel their
-   three-pass TF32 design replaced.  The flash backward (kernels 2 and 3)
-   prints its worst error/limit per kernel and dtype, and checks that two
-   fp32 calls give bit-equal dq, dk and dv; it has a second witness in
-   fp32: ``FlashAttention``'s grads against autograd of the blockwise
-   path.
+   reference, and fp32 kernels 1-3 the time of the CUDA-core kernel their
+   three-pass TF32 design replaced.  The flash forward (kernel 1) prints
+   its worst error/limit per dtype, holds fp32 at B=1 T=8192 too, and
+   checks that two fp32 calls at the training shape give bit-equal out
+   and lse.  The flash backward (kernels 2 and 3) prints its worst
+   error/limit per kernel and dtype, and checks that two fp32 calls give
+   bit-equal dq, dk and dv; it has a second witness in fp32:
+   ``FlashAttention``'s grads against autograd of the blockwise path.
 3. **The serving path at full width**, through the CLI's ``serve`` (what
    ``python -m theanompi_torch.serving`` runs) — ``TransformerLM`` dim
    512, 8 heads, 8 layers, seq_len 2048, vocab 32768, max_batch 8,
@@ -95,9 +98,9 @@ SERVE_ARGS = ["--requests", "16", "--prompt-len", "100", "--turns", "8",
 AGREE_MIN = {"float32": 0.99, "bfloat16": 0.95}
 #: kernels 1-3 at the training shape as CUDA-core kernels, before their
 #: tensor-core redesign (PERF.md's kernel table, NVIDIA H100 80GB HBM3 at
-#: 700 W, the last run of each before it; fp32 kernel 1 is still a
-#: CUDA-core kernel): printed beside today's times, checked against
-#: nothing
+#: 700 W, the last run of each before it; in fp32 the CUDA-core kernels
+#: that the three-pass TF32 ones replaced): printed beside today's times,
+#: checked against nothing
 EARLIER_TRAIN_MS = {("flash_fwd", "bfloat16"): 3.3461,
                     ("flash_fwd", "float32"): 3.3415,
                     ("flash_bwd_dq", "bfloat16"): 4.7159,
@@ -201,9 +204,9 @@ def sass_mma(tool, lib):
 def check_hgmma(K):
     """The number of HGMMA (wgmma) instructions in each flash kernel's bf16
     function (``<name>_wgmma_kernel<D>``, one per head dim), and of TF32
-    HMMA instructions in fp32 dq's and dk/dv's
-    (``flash_bwd_dq_tf32x3_kernel<D>``, ``flash_bwd_dkv_tf32x3_kernel<D>``);
-    fails if one has none (where ``cuobjdump`` exists)."""
+    HMMA instructions in its fp32 function (``<name>_tf32x3_kernel<D>``:
+    ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``); fails if one has
+    none (where ``cuobjdump`` exists)."""
     import re
     import shutil
 
@@ -222,10 +225,9 @@ def check_hgmma(K):
                   f"instructions", flush=True)
         if not k.source.startswith("flash_"):
             continue
-        kinds = [("_wgmma_kernel", 0, "HGMMA", "bf16")]
-        if k.name in ("flash_bwd_dq", "flash_bwd_dkv"):
-            kinds.append(("_tf32x3_kernel", 1, "TF32 HMMA", "fp32"))
-        for suffix, col, what, dt in kinds:
+        for suffix, col, what, dt in (
+                ("_wgmma_kernel", 0, "HGMMA", "bf16"),
+                ("_tf32x3_kernel", 1, "TF32 HMMA", "fp32")):
             fns = {fn: n[col] for fn, n in libs[lib].items()
                    if f"{k.name}{suffix}" in fn}
             for fn, n in sorted(fns.items()):
@@ -251,7 +253,12 @@ def check_flash(torch):
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [(b, t) for b in (1, 8)
              for t in (16, 128, 256, 512, 1024, 2048)]
-    cases.append((TRAIN_ATTN["b"], TRAIN_ATTN["t"]))  # the training shape
+    train = (TRAIN_ATTN["b"], TRAIN_ATTN["t"])
+    cases.append(train)
+    # fp32 also at T=8192: the longest chains of sums (out is summed over
+    # 128 key tiles into one accumulator at the last rows)
+    long_fp32 = (1, 8192)
+    worst = {}  # dtype -> (the largest error/limit, the largest |lse-ref|)
     # out, element by element (see within): fp32 sums run in another order
     # than the plain version's (rel = row = 2e-5); a bf16 output may round
     # one ulp apart (rel 2**-7), and a probability on a bf16 rounding edge
@@ -261,7 +268,8 @@ def check_flash(torch):
     for dtype, (rel, row, lse_tol) in (
             (torch.bfloat16, (2 ** -7, 2 ** -5, 4e-3)),
             (torch.float32, (2e-5, 2e-5, 2e-5))):
-        for b, t in cases:
+        fp32 = dtype == torch.float32
+        for b, t in cases + ([long_fp32] if fp32 else []):
             h, d = 8, 64
             q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=gen)
                        .to(dtype) for _ in range(3))
@@ -277,6 +285,21 @@ def check_flash(torch):
                   f"worst error/limit {ratio:.3g} (limit {rel:.3g}|ref| + "
                   f"{row:.3g} rms(row)), |lse-ref|={lse_err:.3g} "
                   f"(tol {lse_tol})")
+            dn = _dname(dtype)
+            worst[dn] = tuple(max(x, y) for x, y in zip(
+                worst.get(dn, (0.0, 0.0)), (ratio, lse_err)))
+            if fp32 and (b, t) == train:
+                # one CTA owns its rows of out, the key halves merged in a
+                # fixed order
+                again = flash_attention(q, k, v, causal=True)
+                torch.cuda.synchronize()
+                check(torch.equal(again[0], out)
+                      and torch.equal(again[1], lse),
+                      f"flash fp32 B={b} T={t}: two calls give different out "
+                      f"or lse")
+                print(f"check flash_fwd float32 B={b} T={t} H={h} D={d} "
+                      f"causal: two calls give bit-equal out and lse",
+                      flush=True)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             def kernel():
                 return flash_attention(q, k, v, causal=True)
@@ -288,15 +311,20 @@ def check_flash(torch):
             elt = q.element_size()
             n_bytes = 4 * b * t * h * d * elt + b * h * t * 4
             flops = 4 * b * h * d * t * (t + 1) // 2
-            bms, by, bcc = flash_bound(n_bytes, flops, _dname(dtype))
+            bms, by, bcc = flash_bound(n_bytes, flops, dn)
             shape = f"B={b} T={t} H={h} D={d} causal"
-            rows.append(dict(dtype=_dname(dtype), shape=shape,
+            rows.append(dict(dtype=dn, shape=shape,
                              max_abs_err=max(err, lse_err), ratio=ratio,
                              tol=f"{rel:.3g}|ref|+{row:.3g}rms+lse{lse_tol}",
                              ms=ms, call_ms=call_ms,
                              plain_ms=ref_ms, flops=flops,
                              library_ms=lib_ms, bound_ms=bms, bound_by=by,
                              bound_cuda_cores_ms=bcc))
+    print(f"flash fwd: worst error/limit bf16 {worst['bfloat16'][0]:.3g} "
+          f"(limit 2**-7|ref| + 2**-5 rms), |lse-ref| "
+          f"{worst['bfloat16'][1]:.3g} (tol 4e-3); fp32 "
+          f"{worst['float32'][0]:.3g} (limit 2e-5|ref| + 2e-5 rms), "
+          f"|lse-ref| {worst['float32'][1]:.3g} (tol 2e-5)", flush=True)
     return rows
 
 

@@ -71,8 +71,8 @@ def _close(out, ref, rel, row):
 #: kernel 1's shapes: in both dtypes, T below one 64-row tile (16, 48), a
 #: ragged last tile (80) and several key tiles at head dim 32 (208); in
 #: bf16 also three whole causal tiles (192) and a long ragged T at head dim
-#: 128 (1040).  The fp32 kernel is unchanged since these four shapes were
-#: first held.
+#: 128 (1040).  fp32 runs the three-pass TF32 kernel, whose longer shapes
+#: are in ``test_torch_cuda_flash_fwd_fp32.py``.
 FLASH_SHAPES = [(2, 16, 2, 32, True), (1, 48, 3, 128, True),
                 (2, 80, 2, 64, False), (1, 208, 1, 32, False)]
 FLASH_BF16_SHAPES = [(1, 192, 2, 64, True), (2, 1040, 1, 128, False)]

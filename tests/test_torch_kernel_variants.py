@@ -1,9 +1,10 @@
 """The kernel variants tools' substitutions still fit the sources.
 
-``python -m theanompi_torch.kernels.{dkv,dq32,dkv32}_variants`` time the
-flash backward kernels against variants of their own design, each made by
-text substitutions in ``kernels/csrc/flash_bwd.cu`` and its headers, and
-run only on the card.  A substitution whose old text is no longer found
+``python -m theanompi_torch.kernels.{dkv,dq32,dkv32,fwd32}_variants`` time
+the flash kernels against variants of their own design, each made by text
+substitutions in ``kernels/csrc/flash_bwd.cu`` (the backward's tools) or
+``kernels/csrc/flash_fwd.cu`` (``fwd32``) and their headers, and run only
+on the card.  A substitution whose old text is no longer found
 exactly once (the kernel edited, or a second kernel with the same line)
 stops the tool there; this catches it here, on the CPU, for every variant
 of every tool.
@@ -11,15 +12,21 @@ of every tool.
 
 import pytest
 
-from theanompi_torch.kernels import dkv32_variants, dkv_variants, dq32_variants
+from theanompi_torch.kernels import (
+    dkv32_variants,
+    dkv_variants,
+    dq32_variants,
+    fwd32_variants,
+)
 from theanompi_torch.kernels.dkv_variants import variant_sources
 
 
-@pytest.mark.parametrize("tool", [dkv_variants, dq32_variants,
-                                  dkv32_variants],
-                         ids=["dkv", "dq32", "dkv32"])
-def test_every_variant_substitutes_once(tool):
-    plain = variant_sources("shipped", [])
+@pytest.mark.parametrize("tool,source", [
+    (dkv_variants, "flash_bwd.cu"), (dq32_variants, "flash_bwd.cu"),
+    (dkv32_variants, "flash_bwd.cu"), (fwd32_variants, "flash_fwd.cu")],
+    ids=["dkv", "dq32", "dkv32", "fwd32"])
+def test_every_variant_substitutes_once(tool, source):
+    plain = variant_sources("shipped", [], source)
     for name, subs in tool.VARIANTS.items():
-        files = variant_sources(name, subs)
+        files = variant_sources(name, subs, source)
         assert (files == plain) == (not subs), name

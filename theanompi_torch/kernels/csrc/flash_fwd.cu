@@ -39,12 +39,32 @@
 // fill those gaps.  Ping-pong scheduling of two warpgroups and a deeper
 // ring are the next steps (PERF.md has the times).
 //
-// fp32 (flash_fwd_kernel): tensor cores have no fp32 product, so fp32 keeps
-// the first kernel, math on the CUDA cores.  One CTA of 256 threads per
-// (64-row q tile, head, batch); q, k and v tiles sit in shared memory as
-// fp32 (padded rows against bank conflicts); each thread owns a 4 x 4 block
-// of scores and a 4 x D/16 block of the output accumulator in registers;
-// four threads share each row's softmax update through warp shuffles.
+// fp32 (flash_fwd_tf32x3_kernel): the tensor cores have no fp32 product, so
+// each product runs as three TF32 passes of mma.sync m16n8k8 (tf32x3.cuh),
+// fp32-accurate at 165 TFLOP/s of peak against the CUDA cores' 67: fp32
+// dq's layout (flash_bwd.cu).  One CTA of eight warps per (64 query rows,
+// head, batch), the heaviest q tiles first in the causal case: four row
+// groups of 16, each split between two warps that take 32 keys of every
+// 64-key tile, each warp with its own running max, normalizer and
+// accumulator over its keys (merged once, at the end, through the free k/v
+// stages, in a fixed order: deterministic).  q lands once, is scaled in
+// fp32 and split once into its hi and lo parts, two tiles; k and v stream
+// up to the diagonal through a two-stage cp.async ring, all as fp32 rows of
+// D + 4 floats (conflict-free fragment loads): six tiles, two CTAs an SM
+// below D=128.  Per key tile a warp forms its 16 x 32 block of S = qs.k^T,
+// takes the row max and sum on the accumulator fragment (two shuffles
+// within each quad), and forms P.v with P in registers: the fragment of
+// n-tile j is the A fragment of key step j once the keys are taken in the
+// order 8j + 2t, 8j + 2t + 1 (v's rows read to match), so P never goes
+// through shared memory.  On the diagonal tile a warp skips the key n-tiles
+// above its rows.  Each tile's P.v is summed from zero (a chain of 3 x 4
+// mma) and added to the running accumulator as acc * corr + tile in fp32,
+// which rounds to nearest once a tile as the plain version does: the mma's
+// own adds do not round to nearest, and their error grows with the length
+// of a chain (summed straight into the accumulator, P.v breaks the fp32
+// limit at T=2048; PERF.md).  At D=128 the tiles leave room for one CTA an
+// SM, eight warps, and the kernel is slower than SDPA's fp32 forward there
+// (PERF.md has the times).
 //
 // Any T is taken (rows and keys past T are masked); the wrapper asks
 // T % 16 == 0, which every prefill bucket meets.
@@ -54,218 +74,340 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 256;
 constexpr float NEG_INF = -1e30f;
 
-// the CUDA-core kernel below runs fp32 only (bf16 goes to the wgmma kernel)
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-// rounding to the input dtype, kept in fp32 registers
-template <typename T> __device__ __forceinline__ float round_t(float v);
-template <> __device__ __forceinline__ float round_t<float>(float v) { return v; }
+// -- fp32: three-pass TF32 mma.sync on the tensor cores ------------------------
+
+// Eight warps: warp w takes the 16 query rows 16 (w % 4) .. and the 32 keys
+// 32 (w / 4) .. of every 64-key tile; the two key halves merge at the end.
+// Two stages of k and v in flight.
+template <int D>
+struct Fwd32 {
+  static constexpr int LD = D + 4;      // floats per tile row (tf32x3.cuh)
+  static constexpr int TILE = 64 * LD;  // floats per tile
+  static constexpr int WARPS_A_GROUP = 2;  // warps per 16-row group
+  static constexpr int THREADS = 128 * WARPS_A_GROUP;
+  static constexpr int NJ = 8 / WARPS_A_GROUP;  // 8-key n-tiles a warp
+  // registers: two CTAs an SM at up to 128 a thread (one at D = 128, where
+  // shared memory holds one)
+  static constexpr int MIN_BLOCKS = D == 128 ? 1 : 2;
+  // each key tile's P.v summed from zero, then added to the accumulator in
+  // fp32 (false: the mma adds it into the accumulator)
+  static constexpr bool FRESH_TILE = true;
+  // qs split into hi and lo once, into two tiles (false: each warp splits
+  // every A fragment it loads; 3 % slower at the training shape, PERF.md)
+  static constexpr bool Q_SPLIT_ONCE = true;
+  // p = 2^(s log2 e - m log2 e) by ex2_ftz (false: e^(s - m) by expf)
+  static constexpr bool EXP2 = true;
+  // q (its hi part with Q_SPLIT_ONCE), k and v for each of two stages, then
+  // q's lo part with Q_SPLIT_ONCE
+  static constexpr size_t SMEM_BYTES =
+      (5 + Q_SPLIT_ONCE) * (size_t)TILE * sizeof(float);
+};
+
+// 2^x by the hardware's ex2.approx.ftz.f32: exp2f without its care for
+// results below 2^-126, which flush to 0 here, far below what moves a
+// row's sum (whose largest p is 1).  Bit-equal to exp2f at every shape
+// of fwd32_variants, and 1.5-3 % faster (PERF.md)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// e^(x - m), exactly 1 where x == m and 0 where x is -1e30 and m is not
+// (the rescale of a running max, the merge of the key halves)
+template <bool EXP2>
+__device__ __forceinline__ float exp_sub(float x, float m) {
+  if constexpr (EXP2) return exp2f((x - m) * hopper::LOG2E);
+  return expf(x - m);
+}
+
+// s[j] = rows r0 .. r0 + 15 of qs . rows nb + 8 j .. nb + 8 j + 7 of k,
+// over D, for j < nj (the rest stay 0), in three TF32 passes.  With
+// SPLIT_ONCE, Qs holds qs's hi parts and Ql its lo parts
+template <int D, int NJ, bool SPLIT_ONCE>
+__device__ __forceinline__ void scores(float (&s)[NJ][4], const float* Qs,
+                                       const float* Ql, const float* Ks,
+                                       int r0, int nb, int lane, int nj) {
+  constexpr int LD = D + 4;
+  using namespace tf32x3;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 8) {
+    float a[4];
+    uint32_t ah[4], al[4];
+    load_a<LD>(a, Qs, r0, kk, lane);
+    if constexpr (SPLIT_ONCE) {
+      float lo[4];
+      load_a<LD>(lo, Ql, r0, kk, lane);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ah[i] = __float_as_uint(a[i]);
+        al[i] = __float_as_uint(lo[i]);
+      }
+    } else {
+      split(a, ah, al);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j >= nj) continue;
+      float bv[2];
+      uint32_t bh[2], bl[2];
+      load_b_t<LD>(bv, Ks, nb + 8 * j, kk, lane);
+      split(bv, bh, bl);
+      mma3(s[j], ah, al, bh, bl);
+    }
+  }
+}
 
 template <int D>
-constexpr size_t smem_floats() {
-  return (size_t)BQ * (D + 1) + (size_t)BK * (D + 1) + (size_t)BK * D +
-         (size_t)BQ * (BK + 1) + 3 * BQ;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int T_len, int H, int causal,
-                 float scale) {
-  constexpr int CT = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;                      // [BQ][D + 1]
-  float* Ks = Qs + BQ * (D + 1);         // [BK][D + 1]
-  float* Vs = Ks + BK * (D + 1);         // [BK][D]
-  float* S = Vs + BK * D;                // [BQ][BK + 1]
-  float* m_s = S + BQ * (BK + 1);        // [BQ]
-  float* l_s = m_s + BQ;                 // [BQ]
-  float* c_s = l_s + BQ;                 // [BQ]
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = qt * BQ;
-  const size_t row = (size_t)H * D;  // elements between time steps
+__global__ void __launch_bounds__(Fwd32<D>::THREADS, Fwd32<D>::MIN_BLOCKS)
+flash_fwd_tf32x3_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ out,
+                        float* __restrict__ lse, int T_len, int causal,
+                        float scale) {
+  using S = Fwd32<D>;
+  using namespace tf32x3;
+  constexpr int LD = S::LD, TILE = S::TILE, NT32 = S::THREADS, NJ = S::NJ;
+  constexpr int N8 = D / 8;  // 8-column n-tiles of the output
+  extern __shared__ __align__(16) float smem_f[];
+  float* Qs = smem_f;         // q, then qs (its hi parts with Q_SPLIT_ONCE)
+  float* KV = smem_f + TILE;  // stage s: k at KV + 2 s TILE, v after it
+  float* Ql = KV + 4 * TILE;  // qs's lo parts (Q_SPLIT_ONCE only)
+  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  // causal: the q tiles that see the most keys start first
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * 64;
+  const int nk = (T_len + 63) / 64;
+  const int n_kt = causal ? min(qt, nk - 1) + 1 : nk;
+  const size_t row = (size_t)H * D;
   const size_t base = (size_t)b * T_len * row + (size_t)h * D;
-  const float scale_t = round_t<T>(scale);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = warp % 4, kh = warp / 4;
+  const int r0 = 16 * rg;       // this warp's rows of the tile: r0 .. r0 + 15
+  const int kb = 8 * NJ * kh;   // and its keys of each tile: kb .. kb + 8 NJ - 1
+  const int g = lane / 4, t2 = 2 * (lane % 4);
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D;
-    const int t = q0 + r;
-    const float x = t < T_len ? to_f<T>(q[base + (size_t)t * row + c]) : 0.f;
-    Qs[r * (D + 1) + c] = round_t<T>(x * scale_t);
+  // group 0: q and stage 0; group 1: stage 1 (empty if there is none)
+  load_tile_async<D, LD, NT32>(Qs, q + base, row, q0, T_len, tid);
+#pragma unroll
+  for (int st = 0; st < 2; ++st) {
+    if (st < n_kt) {
+      load_tile_async<D, LD, NT32>(KV + 2 * st * TILE, k + base, row, 64 * st,
+                                   T_len, tid);
+      load_tile_async<D, LD, NT32>(KV + (2 * st + 1) * TILE, v + base, row,
+                                   64 * st, T_len, tid);
+    }
+    cp_async_commit();
   }
-  if (tid < BQ) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  float o[4][CT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CT; ++j) o[i][j] = 0.f;
 
-  const int nk = (T_len + BK - 1) / BK;
-  const int kt_end = causal ? min((q0 + BQ - 1) / BK, nk - 1) : nk - 1;
-  for (int kt = 0; kt <= kt_end; ++kt) {
-    const int k0 = kt * BK;
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D;
-      const int t = k0 + r;
-      const bool in = t < T_len;
-      Ks[r * (D + 1) + c] = in ? to_f<T>(k[base + (size_t)t * row + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f<T>(v[base + (size_t)t * row + c]) : 0.f;
-    }
+  // the output accumulator over this warp's keys; element (n, e) is row
+  // r0 + g + 8 (e >> 1), column 8 n + t2 + (e & 1).  Running max and this
+  // thread's share of the normalizer of rows r0 + g and r0 + g + 8
+  float acc[N8][4];
+#pragma unroll
+  for (int n = 0; n < N8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<1>();  // this tile's group has landed
     __syncthreads();
-    const bool masked = (causal && k0 + BK - 1 > q0) || (k0 + BK > T_len);
-
-    // scores: rows ty + 16 i, keys tx + 16 j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], kk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kk[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        float val = s[i][j];
-        if (masked) {
-          const int kc = k0 + c;
-          const bool ok = kc < T_len && (!causal || kc <= q0 + r);
-          val = ok ? val : NEG_INF;
-        }
-        S[r * (BK + 1) + c] = val;
-      }
-    __syncthreads();
-
-    // online softmax: 4 threads per row, 16 keys each
-    {
-      const int r = tid / 4, lane = tid % 4;
-      const float m_old = m_s[r];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int jj = 0; jj < BK / 4; ++jj)
-        mx = fmaxf(mx, S[r * (BK + 1) + lane + 4 * jj]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1, 4));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2, 4));
-      const float m_new = fmaxf(m_old, mx);
-      float psum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < BK / 4; ++jj) {
-        const int c = lane + 4 * jj;
-        float p = expf(S[r * (BK + 1) + c] - m_new);
-        if (masked) {
-          const int kc = k0 + c;
-          const bool ok = kc < T_len && (!causal || kc <= q0 + r);
-          p = ok ? p : 0.f;
-        }
-        p = round_t<T>(p);
-        S[r * (BK + 1) + c] = p;
-        psum += p;
-      }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1, 4);
-      psum += __shfl_xor_sync(0xffffffffu, psum, 2, 4);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        l_s[r] = l_s[r] * corr + psum;
-        m_s[r] = m_new;
-        c_s[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    // accumulator: rows ty + 16 i, dims tx + 16 j
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = c_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < CT; ++j) o[i][j] *= corr;
-    }
+    if (kt == 0) {
+      // qs = q * scale in fp32, as the plain version forms it, and its
+      // hi and lo parts
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4], vv[CT];
+      for (int i = tid; i < 64 * D; i += NT32) {
+        const int at = (i / D) * LD + i % D;
+        const float x = Qs[at] * scale;
+        if constexpr (S::Q_SPLIT_ONCE) {
+          uint32_t hi, lo;
+          split(x, hi, lo);
+          Qs[at] = __uint_as_float(hi);
+          Ql[at] = __uint_as_float(lo);
+        } else {
+          Qs[at] = x;
+        }
+      }
+      __syncthreads();
+    }
+    const int st = kt & 1;
+    const float* Ks = KV + 2 * st * TILE;
+    const float* Vs = Ks + TILE;
+    const int k0 = kt * 64;
+    const bool diag = causal && k0 == q0;
+    // the key n-tiles this warp's rows see: on the diagonal tile, keys up
+    // to row r0 + 15 (none for the second half's first two row groups)
+    const int nj = diag ? min(max(2 * rg + 2 - NJ * kh, 0), NJ) : NJ;
+    if (nj > 0) {
+      float s[NJ][4];
+      scores<D, NJ, S::Q_SPLIT_ONCE>(s, Qs, Ql, Ks, r0, kb, lane, nj);
+      // element (j, e) of s is row q0 + r0 + g + 8 (e >> 1), key
+      // k0 + kb + 8 j + t2 + (e & 1)
+      const bool masked = diag || k0 + 64 > T_len;
+      auto hidden = [&](int j, int e) {
+        const int key = k0 + kb + 8 * j + t2 + (e & 1);
+        return key >= T_len ||
+               (causal && key > q0 + r0 + g + 8 * (e >> 1));
+      };
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = S[(ty + 16 * i) * (BK + 1) + kk];
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < CT; ++j) vv[j] = Vs[kk * D + tx + 16 * j];
+        for (int e = 0; e < 4; ++e) {
+          if (masked && hidden(j, e)) s[j][e] = NEG_INF;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+      float corr[2], ms[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = hopper::quad_max(mx[hh]);
+        corr[hh] = exp_sub<S::EXP2>(m[hh], mx[hh]);
+        m[hh] = mx[hh];
+        ms[hh] = mx[hh] * hopper::LOG2E;
+        l[hh] *= corr[hh];
+      }
+      // p, and its hi and lo parts as the A fragments of P.v.  A row of
+      // this warp may see none of its keys yet (max still -1e30): its
+      // masked p are set to 0, not e^0
+      uint32_t ph[NJ][4], pl[NJ][4];
 #pragma unroll
-        for (int j = 0; j < CT; ++j) o[i][j] = fmaf(p[i], vv[j], o[i][j]);
+      for (int j = 0; j < NJ; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1;
+          p[e] = S::EXP2 ? ex2_ftz(fmaf(s[j][e], hopper::LOG2E, -ms[hh]))
+                         : expf(s[j][e] - m[hh]);
+          if (masked && hidden(j, e)) p[e] = 0.f;
+          l[hh] += p[e];
+        }
+        float a[4];
+        acc_as_a(a, p);
+        split(a, ph[j], pl[j]);
+      }
+      // acc = acc * corr + P.v, each 8-column n-tile of P.v summed from
+      // zero over this warp's key steps, v read in the matching row order
+#pragma unroll
+      for (int n = 0; n < N8; ++n) {
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (!S::FRESH_TILE) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          if (j >= nj) continue;
+          float bv[2];
+          uint32_t bh[2], bl[2];
+          load_b_pairs<LD>(bv, Vs, kb + 8 * j, 8 * n, lane);
+          split(bv, bh, bl);
+          if constexpr (S::FRESH_TILE)
+            mma3(t, ph[j], pl[j], bh, bl);
+          else
+            mma3(acc[n], ph[j], pl[j], bh, bl);
+        }
+        if constexpr (S::FRESH_TILE) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[n][e] = fmaf(acc[n][e], corr[e >> 1], t[e]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage's k and v
+    if (kt + 2 < n_kt) {
+      float* Kn = KV + 2 * st * TILE;
+      load_tile_async<D, LD, NT32>(Kn, k + base, row, k0 + 128, T_len, tid);
+      load_tile_async<D, LD, NT32>(Kn + TILE, v + base, row, k0 + 128, T_len,
+                                   tid);
+    }
+    cp_async_commit();
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) l[hh] = hopper::quad_sum(l[hh]);
+  if constexpr (NJ < 8) {
+    // the second key half's warps hand acc, m and l to the first's through
+    // the free k/v stages, [row group][n][lane] float4 (conflict-free),
+    // then m and l; the first half rescales both to the larger max and
+    // adds, its own terms first.  A second-half row that saw no key (the
+    // first q tile's first 32 rows, causal) has m = -1e30, l = 0 and
+    // acc = 0, and merges with weight exactly 0
+    float4* red = reinterpret_cast<float4*>(KV) + rg * (N8 + 1) * 32 + lane;
+    if (kh == 1) {
+#pragma unroll
+      for (int n = 0; n < N8; ++n)
+        red[n * 32] = make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+      red[N8 * 32] = make_float4(m[0], m[1], l[0], l[1]);
     }
     __syncthreads();
+    if (kh == 1) return;
+    const float4 ml = red[N8 * 32];
+    const float m1[2] = {ml.x, ml.y}, l1[2] = {ml.z, ml.w};
+    float c0[2], c1[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float mm = fmaxf(m[hh], m1[hh]);
+      c0[hh] = exp_sub<S::EXP2>(m[hh], mm);
+      c1[hh] = exp_sub<S::EXP2>(m1[hh], mm);
+      m[hh] = mm;
+      l[hh] = fmaf(l1[hh], c1[hh], l[hh] * c0[hh]);
+    }
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      const float4 o = red[n * 32];
+      acc[n][0] = fmaf(o.x, c1[0], acc[n][0] * c0[0]);
+      acc[n][1] = fmaf(o.y, c1[0], acc[n][1] * c0[0]);
+      acc[n][2] = fmaf(o.z, c1[1], acc[n][2] * c0[1]);
+      acc[n][3] = fmaf(o.w, c1[1], acc[n][3] * c0[1]);
+    }
   }
 
+  // out = acc / l, lse = m + log(l), rows past T not stored
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, t = q0 + r;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = q0 + r0 + g + 8 * hh;
     if (t >= T_len) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
+    const float ls = fmaxf(l[hh], 1e-30f);
+    float* o = out + base + (size_t)t * row + t2;
 #pragma unroll
-    for (int j = 0; j < CT; ++j)
-      out[base + (size_t)t * row + tx + 16 * j] = from_f<T>(o[i][j] / l);
+    for (int n = 0; n < N8; ++n)
+      *reinterpret_cast<float2*>(o + 8 * n) =
+          make_float2(acc[n][2 * hh] / ls, acc[n][2 * hh + 1] / ls);
+    if (lane % 4 == 0)
+      lse[((size_t)b * H + h) * T_len + t] = m[hh] + logf(ls);
   }
-  if (tid < BQ && q0 + tid < T_len)
-    lse[((size_t)b * H + h) * T_len + q0 + tid] =
-        m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           int B, int T_len, int H, int causal, float scale,
-           cudaStream_t st) {
-  const size_t bytes = smem_floats<D>() * sizeof(float);
+template <int D>
+int launch_tf32x3(const void* q, const void* k, const void* v, void* out,
+                  void* lse, int B, int T_len, int H, int causal, float scale,
+                  cudaStream_t st) {
+  using S = Fwd32<D>;
+  // 16-byte copies (cp.async) and 8-byte stores
+  for (const void* p : {q, k, v, static_cast<const void*>(out)})
+    if (reinterpret_cast<uintptr_t>(p) % 16)
+      return (int)cudaErrorMisalignedAddress;
   static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
-  dim3 grid((T_len + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, NT, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), T_len, H, causal, scale);
+  int rc = hopper::configure(flash_fwd_tf32x3_kernel<D>, S::SMEM_BYTES,
+                             configured);
+  if (rc) return rc;
+  dim3 grid(H, B, (T_len + 63) / 64);
+  flash_fwd_tf32x3_kernel<D><<<grid, S::THREADS, S::SMEM_BYTES, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), T_len, causal, scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_t(int D, const void* q, const void* k, const void* v, void* out,
-             void* lse, int B, int T_len, int H, int causal, float scale,
-             cudaStream_t st) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, out, lse, B, T_len, H, causal, scale, st);
-    case 64: return launch<T, 64>(q, k, v, out, lse, B, T_len, H, causal, scale, st);
-    case 128: return launch<T, 128>(q, k, v, out, lse, B, T_len, H, causal, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 // -- bf16: wgmma products on TMA-fed tiles ----------------------------------------
@@ -418,15 +560,21 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q, k, v, out: [B, T, H, D] contiguous
-// (16-byte aligned in bf16); lse: [B, H, T] fp32.  Returns
+// and 16-byte aligned; lse: [B, H, T] fp32.  Returns
 // cudaGetLastError(), or -CUresult when a tensor map fails to encode.
 extern "C" int flash_fwd(int dtype, const void* q, const void* k,
                          const void* v, void* out, void* lse, int B, int T,
                          int H, int D, int causal, float scale,
                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_t<float>(D, q, k, v, out, lse, B, T, H, causal, scale, st);
+  if (dtype == 0) {
+    switch (D) {
+      case 32: return launch_tf32x3<32>(q, k, v, out, lse, B, T, H, causal, scale, st);
+      case 64: return launch_tf32x3<64>(q, k, v, out, lse, B, T, H, causal, scale, st);
+      case 128: return launch_tf32x3<128>(q, k, v, out, lse, B, T, H, causal, scale, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (D) {
     case 32: return launch_wgmma<32>(q, k, v, out, lse, B, T, H, causal, scale, st);
     case 64: return launch_wgmma<64>(q, k, v, out, lse, B, T, H, causal, scale, st);

@@ -72,12 +72,13 @@ SHAPES = [(16, 2048, 8, 64, True), (1, 2048, 8, 64, True),
           (16, 2048, 8, 32, True), (16, 2048, 8, 128, True)]
 
 
-def variant_sources(name, subs):
-    """``flash_bwd.cu`` and the ``csrc/*.cuh`` headers with each (old, new)
-    substitution of ``subs`` made; -> {file name: text}.  Raises
-    SystemExit unless each old text is found exactly once in them all."""
-    names = ["flash_bwd.cu"] + sorted(f for f in os.listdir(CSRC)
-                                      if f.endswith(".cuh"))
+def variant_sources(name, subs, source="flash_bwd.cu"):
+    """``source`` (a ``csrc/*.cu`` file) and the ``csrc/*.cuh`` headers
+    with each (old, new) substitution of ``subs`` made; -> {file name:
+    text}.  Raises SystemExit unless each old text is found exactly once
+    in them all."""
+    names = [source] + sorted(f for f in os.listdir(CSRC)
+                              if f.endswith(".cuh"))
     files = {f: open(os.path.join(CSRC, f)).read() for f in names}
     for old, new in subs:
         hits = [f for f in files for _ in range(files[f].count(old))]
@@ -88,22 +89,22 @@ def variant_sources(name, subs):
     return files
 
 
-def build_variants(variants, tag, out_dir):
-    """Write and compile every variant of ``flash_bwd.cu`` (see
+def build_variants(variants, tag, out_dir, source="flash_bwd.cu"):
+    """Write and compile every variant of ``source`` (see
     ``variant_sources``) at once; -> {name: library path}, printing the
     ptxas registers and spills (and wgmma serialization notes) of each
     function whose name holds ``tag``."""
     procs = {}
     for name, subs in variants.items():
-        files = variant_sources(name, subs)
+        files = variant_sources(name, subs, source)
         d = os.path.join(out_dir, name)
         os.makedirs(d, exist_ok=True)
         for f, text in files.items():
             with open(os.path.join(d, f), "w") as fh:
                 fh.write(text)
-        lib = os.path.join(d, "libflash_bwd.so")
+        lib = os.path.join(d, f"lib{os.path.splitext(source)[0]}.so")
         procs[name] = (lib, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", lib, os.path.join(d, "flash_bwd.cu")],
+            [_nvcc(), *NVCC_FLAGS, "-o", lib, os.path.join(d, source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, p) in procs.items():

@@ -13,10 +13,11 @@ CPU tensor runs :func:`flash_attention_ref` / :func:`flash_attention_bwd_ref`.
 backward, ``lse`` not differentiable.
 
 In bf16, kernels 1-3 run on the tensor cores with TMA loads: their
-operands, and the backward's lse, must be 16-byte aligned.  In fp32, kernels
-2 and 3 run on the tensor cores too (three TF32 passes a product,
-fp32-accurate) and load 16 bytes at a time: the backward's q, k, v, d_out
-and lse must be 16-byte aligned in fp32 as well.
+operands, and the backward's lse, must be 16-byte aligned.  In fp32,
+kernels 1-3 run on the tensor cores too (three TF32 passes a product,
+fp32-accurate) and load 16 bytes at a time: the forward's q, k and v and
+the backward's q, k, v, d_out and lse must be 16-byte aligned in fp32 as
+well.
 """
 
 from __future__ import annotations
@@ -89,8 +90,8 @@ def flash_attention_ref(q, k, v, causal: bool = False):
 
 
 def _check_aligned(name, *tensors):
-    """The bf16 kernels read and write through TMA, and fp32 kernels 2 and
-    3 with 16-byte copies: both want 16-byte aligned base addresses."""
+    """The bf16 kernels read and write through TMA, and the fp32 kernels
+    with 16-byte copies: both want 16-byte aligned base addresses."""
     for x in tensors:
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: data_ptr() of a tensor of shape "
@@ -119,7 +120,8 @@ def _check_gate(name, q, *others):
 def flash_attention(q, k, v, causal: bool = False):
     """Flash attention forward over ``[B, T, H, D]``; -> (out, lse).  A
     CPU tensor runs the plain version; a CUDA tensor launches kernel 1 or
-    raises."""
+    raises (q, k and v must be 16-byte aligned: TMA in bf16, 16-byte
+    copies in fp32)."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal)
     b, t, h, d = q.shape
@@ -127,8 +129,7 @@ def flash_attention(q, k, v, causal: bool = False):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     check_cuda("flash_attention", q, k, v)
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        _check_aligned("flash_attention", q, k, v)
+    _check_aligned("flash_attention", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     FLASH_FWD.call(
