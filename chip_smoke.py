@@ -17,7 +17,8 @@ Phases (any failure exits non-zero and prints no result line):
    kernel's bf16 function; and the number of TF32 ``HMMA`` (``mma.sync``)
    instructions in each fp32 flash kernel's function, forward, dq and
    dk/dv (three TF32 passes a product on the tensor cores), which must not
-   be 0 either.
+   be 0 either, nor the ``HMMA`` count of the int8 matmul's bf16
+   tensor-core kernel.
 2. **Each kernel against its plain version on the card**, at the serving
    and training slices' shapes, with the tolerance stated per kernel; one
    line per kernel and shape with ``kernel_ms`` (device time, from a CUDA
@@ -26,7 +27,13 @@ Phases (any failure exits non-zero and prints no result line):
    ``ref_ms`` (the plain version) and ``library_ms`` (one PyTorch call
    computing the same function, timed here only: SDPA and its backward for
    flash attention, dequantize + matmul for the int8 matmul, none for
-   paged decode).  The training-shape rows of kernels 1-3 also print
+   paged decode).  Paged decode (kernel 4) runs the ragged decode batch,
+   one slot at position 2047 and eight at 2047; it and the int8 matmul
+   (kernel 5, the decode step's four weight shapes at M = 1 and 8) check
+   that two calls are bit-equal and print their times before the decode
+   step's redesign (``earlier``), and the two kernels' device time in one
+   decode step of the served model is printed per dtype.  The
+   training-shape rows of kernels 1-3 also print
    their times before the bf16 tensor-core redesign (``earlier``), for
    reference, and fp32 kernels 1-3 the time of the CUDA-core kernel their
    three-pass TF32 design replaced.  The flash forward (kernel 1) prints
@@ -64,6 +71,9 @@ Phases (any failure exits non-zero and prints no result line):
    is traced with ``torch.profiler``: device busy time against the step's
    wall time, and the kernels that take most of it.
 
+``python3 chip_smoke.py --decode`` runs phase 1 and kernels 4 and 5 of
+phase 2 only, and prints no result line.
+
 Output: the ``nvidia-smi`` line, one line per check, the serve reports,
 the training lines, then ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  fp32 products run without TF32 throughout.
@@ -71,6 +81,7 @@ the training lines, then ``{"kernels": [...]}`` and, last, ``{"ok": true,
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -107,6 +118,41 @@ EARLIER_TRAIN_MS = {("flash_fwd", "bfloat16"): 3.3461,
                     ("flash_bwd_dq", "float32"): 4.5764,
                     ("flash_bwd_dkv", "bfloat16"): 5.7558,
                     ("flash_bwd_dkv", "float32"): 5.6411}
+
+
+#: kernels 4 and 5 at every smoke shape before their redesign for the
+#: decode step (the earlier kernels under this script's ``--decode``,
+#: NVIDIA H100 80GB HBM3 at 700 W; PERF.md's kernel table): printed beside
+#: today's times, checked against nothing.  Keyed by (kernel, dtype, the
+#: row's case).
+EARLIER_DECODE_MS = {
+    ("paged_decode", "bfloat16", "ragged"): 0.1412,
+    ("paged_decode", "float32", "ragged"): 0.1174,
+    ("paged_decode", "bfloat16", "B=1 T=2048"): 0.1415,
+    ("paged_decode", "float32", "B=1 T=2048"): 0.1172,
+    ("paged_decode", "bfloat16", "B=8 T=2048"): 0.1664,
+    ("paged_decode", "float32", "B=8 T=2048"): 0.2309,
+    ("int8_matmul", "bfloat16", "M=1 [512,512]"): 0.0144,
+    ("int8_matmul", "bfloat16", "M=8 [512,512]"): 0.0148,
+    ("int8_matmul", "float32", "M=1 [512,512]"): 0.0123,
+    ("int8_matmul", "float32", "M=8 [512,512]"): 0.0128,
+    ("int8_matmul", "bfloat16", "M=1 [512,2048]"): 0.0147,
+    ("int8_matmul", "bfloat16", "M=8 [512,2048]"): 0.0153,
+    ("int8_matmul", "float32", "M=1 [512,2048]"): 0.0124,
+    ("int8_matmul", "float32", "M=8 [512,2048]"): 0.0130,
+    ("int8_matmul", "bfloat16", "M=1 [2048,512]"): 0.0151,
+    ("int8_matmul", "bfloat16", "M=8 [2048,512]"): 0.0153,
+    ("int8_matmul", "float32", "M=1 [2048,512]"): 0.0128,
+    ("int8_matmul", "float32", "M=8 [2048,512]"): 0.0131,
+    ("int8_matmul", "bfloat16", "M=1 [512,32768]"): 0.0472,
+    ("int8_matmul", "bfloat16", "M=8 [512,32768]"): 0.0484,
+    ("int8_matmul", "float32", "M=1 [512,32768]"): 0.0399,
+    ("int8_matmul", "float32", "M=8 [512,32768]"): 0.0407,
+}
+#: kernel 5's launches in one decode step of the served model, by weight
+#: shape: q, k, v and o of 8 layers, the MLP's two matmuls, the head
+DECODE_INT8_CALLS = {(512, 512): 32, (512, 2048): 8, (2048, 512): 8,
+                     (512, 32768): 1}
 
 
 class SmokeFailure(Exception):
@@ -186,18 +232,20 @@ def _dname(dtype):
 
 def sass_mma(tool, lib):
     """{function: (its HGMMA (wgmma) instructions, its TF32 HMMA (mma.sync
-    with TF32 operands) instructions)} over the ``Function : ...`` sections
-    of a library's SASS (``cuobjdump -sass``)."""
+    with TF32 operands) instructions, all its HMMA instructions)} over the
+    ``Function : ...`` sections of a library's SASS (``cuobjdump
+    -sass``)."""
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, timeout=300).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ", 1)[1].strip()
-            counts[fn] = [0, 0]
+            counts[fn] = [0, 0, 0]
         elif fn is not None:
             counts[fn][0] += line.count("HGMMA")
             counts[fn][1] += "HMMA" in line and ".TF32" in line
+            counts[fn][2] += "HMMA" in line
     return counts
 
 
@@ -223,6 +271,15 @@ def check_hgmma(K):
                   f"{sum(n[0] for n in libs[lib].values())} HGMMA, "
                   f"{sum(n[1] for n in libs[lib].values())} TF32 HMMA "
                   f"instructions", flush=True)
+        if k.name == "int8_matmul":
+            # kernel 5's bf16 path runs mma.sync on bf16 operands
+            tc = {fn: n[2] for fn, n in libs[lib].items()
+                  if "int8_mm_tc_kernel" in fn}
+            print(f"sass int8_mm_tc_kernel: {sum(tc.values())} HMMA "
+                  f"instructions", flush=True)
+            check(len(tc) == 1 and all(n > 0 for n in tc.values()),
+                  f"int8_matmul: its tensor-core kernel has no HMMA "
+                  f"instruction in its SASS ({tc})")
         if not k.source.startswith("flash_"):
             continue
         for suffix, col, what, dt in (
@@ -328,21 +385,31 @@ def check_flash(torch):
     return rows
 
 
-def paged_case(torch, dtype, gen):
-    """B=8, H=8, Dh=64, bs=16, 1025 blocks: ragged positions (0 = an
-    inactive slot on the null block, up to 2047), null tails, and two
-    slots sharing their leading blocks."""
-    b, h, d, bs, n_blocks, nb = 8, 8, 64, 16, 1025, 128
-    positions = [0, 2047, 5, 100, 511, 1000, 1500, 37]
+#: kernel 4's cases at the serving geometry (H=8, Dh=64, bs=16, 1025
+#: blocks, tables of 128): the ragged decode batch (0 = an inactive slot
+#: on the null block, up to 2047, two slots sharing their leading blocks;
+#: first, the summary's row), one slot at 2047, and every slot at 2047
+PAGED_POSITIONS = {"ragged": [0, 2047, 5, 100, 511, 1000, 1500, 37],
+                   "B=1 T=2048": [2047],
+                   "B=8 T=2048": [2047] * 8}
+
+
+def paged_case(torch, dtype, gen, positions):
+    """B=len(positions), H=8, Dh=64, bs=16, 1025 blocks: each active slot
+    on its own blocks with a null tail (position 0 = an inactive slot on
+    the null block); in the ragged case slots 3 and 4 share their leading
+    two blocks."""
+    b, h, d, bs, n_blocks, nb = len(positions), 8, 64, 16, 1025, 128
     tables = torch.zeros((b, nb), dtype=torch.int32)
     nxt = 1
     for s, p in enumerate(positions):
-        if s == 0:
+        if p == 0:
             continue  # inactive: all-null table
         need = p // bs + 1
         tables[s, :need] = torch.arange(nxt, nxt + need, dtype=torch.int32)
         nxt += need
-    tables[3, :2] = tables[4, :2]  # a shared prefix of two blocks
+    if positions == PAGED_POSITIONS["ragged"]:
+        tables[3, :2] = tables[4, :2]  # a shared prefix of two blocks
     kp = torch.randn(n_blocks, bs, h, d, device="cuda", generator=gen)
     vp = torch.randn(n_blocks, bs, h, d, device="cuda", generator=gen)
     q = torch.randn(b, h, d, device="cuda", generator=gen)
@@ -361,18 +428,22 @@ def check_paged(torch):
     # element by element (see within): fp32 sums in another order (rel =
     # row = 1e-5); bf16 outputs rounded once from nearly equal fp32 values
     # (one ulp, at most 2**-7 relative; row 1e-4 for fp32 order effects)
-    for dtype, rel, row in ((torch.bfloat16, 2 ** -7, 1e-4),
-                            (torch.float32, 1e-5, 1e-5)):
-        args = paged_case(torch, dtype, gen)
+    tols = ((torch.bfloat16, 2 ** -7, 1e-4), (torch.float32, 1e-5, 1e-5))
+    for (case, pos_list), (dtype, rel, row) in itertools.product(
+            PAGED_POSITIONS.items(), tols):
+        args = paged_case(torch, dtype, gen, pos_list)
         out = paged_attend_decode(*args)
+        again = paged_attend_decode(*args)
         ref = paged_attend_decode_ref(*args)
         torch.cuda.synchronize()
         err, ratio = within(out, ref, rel, row)
         check(torch.isfinite(out.float()).all().item(),
-              f"paged {dtype}: non-finite output (inactive slot?)")
-        check(ratio <= 1, f"paged {dtype}: |out-ref|={err:.3g}, worst "
-              f"error/limit {ratio:.3g} (limit {rel:.3g}|ref| + {row:.3g} "
-              f"rms(row))")
+              f"paged {dtype} {case}: non-finite output (inactive slot?)")
+        check(ratio <= 1, f"paged {dtype} {case}: |out-ref|={err:.3g}, "
+              f"worst error/limit {ratio:.3g} (limit {rel:.3g}|ref| + "
+              f"{row:.3g} rms(row))")
+        check(torch.equal(out, again),
+              f"paged {dtype} {case}: two calls differ")
         ms = time_ms(lambda: paged_attend_decode(*args), 50, graph=True)
         call_ms = time_ms(lambda: paged_attend_decode(*args), 50)
         ref_ms = time_ms(lambda: paged_attend_decode_ref(*args), 5)
@@ -383,13 +454,14 @@ def check_paged(torch):
         n_bytes = (2 * ctx * h * d * kp.element_size()
                    + 2 * q.numel() * q.element_size() + 4 * used + 4 * b)
         bms, by = bound_ms(n_bytes, 4 * ctx * h * d, _dname(dtype))
+        shown = ("ragged " + str(pos_list) if case == "ragged"
+                 else f"positions={pos_list[0]}")
         rows.append(dict(dtype=_dname(dtype), shape=f"B={b} H={h} Dh={d} "
-                         f"bs={bs} blocks=1025 positions="
-                         f"{positions.tolist()}", max_abs_err=err,
+                         f"bs={bs} blocks=1025 {shown}", max_abs_err=err,
                          ratio=ratio, tol=f"{rel:.3g}|ref|+{row:.3g}rms",
                          ms=ms, call_ms=call_ms, plain_ms=ref_ms,
                          library_ms=None, flops=4 * ctx * h * d,
-                         bound_ms=bms, bound_by=by))
+                         bound_ms=bms, bound_by=by, case=case))
     return rows
 
 
@@ -416,6 +488,7 @@ def check_int8(torch):
             for m in (1, 8):
                 x = torch.randn(m, din, generator=gen).cuda().to(dtype)
                 out = int8_matmul(x, qt)
+                again = int8_matmul(x, qt)
                 ref = int8_matmul_ref(x, qt)
                 torch.cuda.synchronize()
                 err, ratio = within(out, ref, rel, row)
@@ -423,6 +496,8 @@ def check_int8(torch):
                       f"int8 {dtype} M={m} [{din},{dout}]: |out-ref|="
                       f"{err:.3g}, worst error/limit {ratio:.3g} (limit "
                       f"{rel:.3g}|ref| + {row:.3g} rms(row))")
+                check(torch.equal(out, again),
+                      f"int8 {dtype} M={m} [{din},{dout}]: two calls differ")
                 ms = time_ms(lambda: int8_matmul(x, qt), 50, graph=True)
                 call_ms = time_ms(lambda: int8_matmul(x, qt), 50)
                 ref_ms = time_ms(lambda: int8_matmul_ref(x, qt), 50)
@@ -440,7 +515,8 @@ def check_int8(torch):
                                  tol=f"{rel:.3g}|ref|+{row:.3g}rms", ms=ms,
                                  call_ms=call_ms, plain_ms=ref_ms,
                                  library_ms=lib_ms, flops=2 * m * din * dout,
-                                 bound_ms=bms, bound_by=by))
+                                 bound_ms=bms, bound_by=by,
+                                 case=f"M={m} [{din},{dout}]"))
     return rows
 
 
@@ -635,9 +711,10 @@ def print_rows(name, rows):
     for r in rows:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
-        before = EARLIER_TRAIN_MS.get((name, r["dtype"]))
-        before = (f" (earlier: {before} ms)"
-                  if before and r["shape"].startswith(t_shape) else "")
+        before = (EARLIER_TRAIN_MS.get((name, r["dtype"]))
+                  if r["shape"].startswith(t_shape) else
+                  EARLIER_DECODE_MS.get((name, r["dtype"], r.get("case"))))
+        before = f" (earlier: {before} ms)" if before else ""
         # fp32 flash rows: the CUDA-core bound beside the three-pass TF32 one
         cc = ("" if r.get("bound_cuda_cores_ms") is None else
               f" bound_cuda_cores_ms={r['bound_cuda_cores_ms']:.5f}")
@@ -650,6 +727,27 @@ def print_rows(name, rows):
               f"library_ms={lib} bound_ms={r['bound_ms']:.5f} "
               f"({r['bound_by']}){cc} max_abs_err={r['max_abs_err']:.3g} "
               f"err/limit={r['ratio']:.3g} limit={r['tol']}", flush=True)
+
+
+def decode_step_ms(checks):
+    """Device ms of kernels 4 and 5 in one decode step of the served model
+    (8 layers, M=8 rows), per dtype, from the phase-2 rows: paged decode
+    at the ragged batch once per layer, the int8 matmul at each weight
+    shape as often as the step calls it."""
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        paged = next(r["ms"] for r in checks["paged_decode"]
+                     if r["dtype"] == dt and r["case"] == "ragged")
+        int8 = sum(n * next(r["ms"] for r in checks["int8_matmul"]
+                            if r["dtype"] == dt
+                            and r["case"] == f"M=8 [{din},{dout}]")
+                   for (din, dout), n in DECODE_INT8_CALLS.items())
+        out[dt] = (8 * paged, int8)
+        print(f"decode step {dt}: paged decode 8 x {paged:.4f} = "
+              f"{8 * paged:.4f} ms, int8 matmul (49 calls, M=8) "
+              f"{int8:.4f} ms, together {8 * paged + int8:.4f} ms of "
+              f"device time", flush=True)
+    return out
 
 
 # -- phase 3: the serving path --------------------------------------------------
@@ -1031,12 +1129,21 @@ def main() -> int:
     check_hgmma(K)
 
     # -- phase 2 -----------------------------------------------------------
+    if "--decode" in sys.argv[1:]:
+        # development run: kernels 4 and 5 only, no result line
+        checks = {"paged_decode": check_paged(torch),
+                  "int8_matmul": check_int8(torch)}
+        for k, rows in checks.items():
+            print_rows(k, rows)
+        decode_step_ms(checks)
+        return 0
     checks = {"flash_fwd": check_flash(torch),
               "paged_decode": check_paged(torch),
               "int8_matmul": check_int8(torch)}
     checks["flash_bwd_dq"], checks["flash_bwd_dkv"] = check_flash_bwd(torch)
     for k, rows in checks.items():
         print_rows(k, rows)
+    decode_step_ms(checks)
     check_flash_autograd(torch)
 
     # -- phase 3 -----------------------------------------------------------

@@ -81,18 +81,23 @@ class Kernel:
             self._lib = ctypes.CDLL(_lib_path(self.source))
         return self._lib
 
-    def call(self, symbol: str, sig: str, *args) -> None:
-        """Call a C entry point.  ``sig`` spells its arguments, one letter
-        each: ``p`` a pointer or the stream (``c_void_p``, from
-        ``data_ptr()`` / ``cuda_stream``), ``i`` a ``c_int``, ``f`` a
-        ``c_float``.  Raises on a non-zero ``cudaGetLastError``."""
+    def query(self, symbol: str, sig: str, *args) -> int:
+        """Call a C function that returns an ``int``, and return it.
+        ``sig`` spells its arguments, one letter each: ``p`` a pointer or
+        the stream (``c_void_p``, from ``data_ptr()`` / ``cuda_stream``),
+        ``i`` a ``c_int``, ``f`` a ``c_float``."""
         fn = self._fns.get(symbol)
         if fn is None:
             fn = getattr(self._load(), symbol)
             fn.argtypes = [_CTYPES[c] for c in sig]
             fn.restype = ctypes.c_int
             self._fns[symbol] = fn
-        rc = fn(*args)
+        return fn(*args)
+
+    def call(self, symbol: str, sig: str, *args) -> None:
+        """Call a C entry point (``sig`` as :meth:`query`).  Raises on a
+        non-zero ``cudaGetLastError``."""
+        rc = self.query(symbol, sig, *args)
         if rc != 0:
             raise RuntimeError(f"{self.name}: {symbol} failed with CUDA "
                                f"error {rc}")

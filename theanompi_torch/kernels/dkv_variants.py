@@ -114,9 +114,14 @@ def build_variants(variants, tag, out_dir, source="flash_bwd.cu"):
         lines = log.splitlines()
         for i, line in enumerate(lines):
             if "Function properties" in line and tag in line:
-                d = line.split("ILi")[1].split("E")[0]
-                print(f"ptxas {name} D={d}: {lines[i + 2].split(':')[-1]}"
-                      f"; {lines[i + 1].strip()}", flush=True)
+                # a flash kernel's head dim, else the mangled template
+                # arguments after the tag
+                args = ("D=" + line.split("ILi")[1].split("E")[0]
+                        if "ILi" in line else
+                        line.split(tag, 1)[1].split("EEEv")[0])
+                print(f"ptxas {name} {args}: "
+                      f"{lines[i + 2].split(':')[-1]}; "
+                      f"{lines[i + 1].strip()}", flush=True)
         for line in lines:
             if "serialized" in line and tag in line:
                 d = line.split("ILi")[1].split("E")[0]

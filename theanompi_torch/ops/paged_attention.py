@@ -4,9 +4,11 @@ Counterpart of ``theanompi_tpu/ops/pallas_paged_attention.py``: one query
 per batch slot against one layer's paged KV pool.  The block table picks
 the pool blocks of each slot; an online softmax in fp32 runs over them;
 positions past ``positions[b]`` are masked with ``-1e30``.  On the card
-:func:`paged_attend_decode` launches ``kernels/csrc/paged_decode.cu``; a
-CPU tensor runs :func:`paged_attend_decode_ref`, which is also the
-serving cache's fallback (``decode_kernel="off"``).
+:func:`paged_attend_decode` launches ``kernels/csrc/paged_decode.cu``,
+which splits each slot's context into runs of whole pool blocks, one CTA
+each, and merges the runs' partial softmax states in a fixed order; a CPU
+tensor runs :func:`paged_attend_decode_ref`, which is also the serving
+cache's fallback (``decode_kernel="off"``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ PAGED_DECODE = register(Kernel(
     "theanompi_tpu/ops/pallas_paged_attention.py:54 (_decode_kernel)"))
 
 _NEG_INF = -1e30
+_SPLIT_TOKENS: dict = {}
 
 
 def paged_decode_supported(heads: int, head_dim: int, block_size: int,
@@ -29,6 +32,18 @@ def paged_decode_supported(heads: int, head_dim: int, block_size: int,
     head_dim % 128 in bf16 — does not apply on the card.)"""
     return (head_dim in (32, 64, 128) and block_size in (8, 16, 32)
             and dtype in (torch.float32, torch.bfloat16) and heads >= 1)
+
+
+def paged_split_tokens(dtype, head_dim: int, block_size: int) -> int:
+    """Kernel 4's tokens per split of a slot's context (whole pool
+    blocks), from the kernel's own geometry; the wrapper sizes the split
+    partials' workspace with it."""
+    key = (dtype, head_dim, block_size)
+    if key not in _SPLIT_TOKENS:
+        _SPLIT_TOKENS[key] = PAGED_DECODE.query(
+            "paged_decode_split_tokens", "iii",
+            0 if dtype == torch.float32 else 1, head_dim, block_size)
+    return _SPLIT_TOKENS[key]
 
 
 def paged_attend_decode_ref(k_pool, v_pool, tables, block_size: int, q,
@@ -95,15 +110,29 @@ def paged_attend_decode(k_pool, v_pool, tables, block_size: int, q,
     if tables.shape[0] != b or positions.shape != (b,):
         raise ValueError("paged_attend_decode: tables/positions batch "
                          "does not match q")
-    # the model hands over q[:, 0] of the split qkv projection, a strided view
+    # the model hands over q[:, 0] of the split qkv projection, a strided
+    # view; the kernel reads q, K and V rows with 16-byte loads
     q = q.contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
     check_cuda("paged_attend_decode", k_pool, v_pool, tables, positions, q)
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_attend_decode: pools must be 16-byte "
+                         "aligned")
+    nb = tables.shape[1]
+    # the grid, and so the workspace, from the table's width alone: the
+    # host reads no positions, and the call can be captured in a graph
+    splits = -(-nb * block_size // paged_split_tokens(q.dtype, d,
+                                                      block_size))
+    ws = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                     device=q.device)
     out = torch.empty_like(q)
     PAGED_DECODE.call(
-        "paged_decode", "ippppppiiiiifp",
+        "paged_decode", "ipppppppiiiiifp",
         0 if q.dtype == torch.float32 else 1, k_pool.data_ptr(),
         v_pool.data_ptr(), tables.data_ptr(), positions.data_ptr(),
-        q.data_ptr(), out.data_ptr(), b, h, d, block_size,
-        tables.shape[1], float(d ** -0.5), stream_ptr(q))
+        q.data_ptr(), out.data_ptr(), ws.data_ptr(), b, h, d, block_size,
+        nb, float(d ** -0.5), stream_ptr(q))
+    # one count per call: the split kernel and the merge of its partials
     PAGED_DECODE.launches += 1
     return out

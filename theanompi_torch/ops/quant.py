@@ -32,8 +32,9 @@ INT8_MATMUL = register(Kernel(
     "int8_matmul", "int8_matmul.cu",
     "theanompi_tpu/ops/quant.py:122 (_int8_mm_kernel)"))
 
-#: kernel 5 loads 4 int8 weights per thread as one word, so a band's
-#: column count must be a multiple of this
+#: kernel 5's narrowest load is 4 int8 weights as one word, so a band's
+#: column count must be a multiple of this (16-column bands, 16-byte
+#: aligned, take its 16-byte loads)
 _VEC = 4
 
 
@@ -85,6 +86,9 @@ class QuantizedTensor:
     dtype: torch.dtype
     _layout: tuple | None = dataclasses.field(default=None, repr=False,
                                               compare=False)
+    _packed: torch.Tensor | None = dataclasses.field(default=None,
+                                                     repr=False,
+                                                     compare=False)
 
     def dequantize(self) -> torch.Tensor:
         return dequantize_chunked(self.q, self.scales, self.shape, self.dtype)
@@ -108,6 +112,22 @@ class QuantizedTensor:
             self._layout = _band_layout(self)
         return self._layout
 
+    def tc_packed(self):
+        """The 2D payload in kernel 5's tensor-core fragment order
+        (:func:`tc_pack`), computed once per leaf on the payload's device
+        (a second copy of the int8 bytes); ``None`` where the tensor-core
+        kernel does not take the shape (:func:`tc_shape`), and while the
+        stream is captured into a CUDA graph before it was built (a
+        captured build would run only at replay)."""
+        layout = self.layout()
+        if (self._packed is None and layout is not None
+                and not torch.cuda.is_current_stream_capturing()):
+            q2d, _, bands = layout
+            din, dout = q2d.shape
+            if tc_shape(din, dout, dout // bands):
+                self._packed = tc_pack(q2d)
+        return self._packed
+
 
 def _band_layout(qt: QuantizedTensor):
     """Metadata-only view of the chunked payload as ``(q2d [Din, Dout]
@@ -128,6 +148,35 @@ def _band_layout(qt: QuantizedTensor):
         return (qt.q.reshape(din, dout),
                 qt.scales.reshape(din, bands).t().contiguous(), bands)
     return None
+
+
+def tc_shape(din: int, dout: int, cc: int) -> bool:
+    """Whether kernel 5's bf16 tensor-core path takes a ``[Din, Dout]``
+    weight in bands of ``cc`` columns: K in pairs of 16-row tiles, whole
+    16-column tiles, every 64-column tile in one band (the kernel's own
+    ``int8_matmul_tc_shape``)."""
+    return din % 32 == 0 and dout % 16 == 0 and (cc == dout or cc % 64 == 0)
+
+
+def tc_pack(q2d: torch.Tensor) -> torch.Tensor:
+    """``q2d [Din, Dout]`` int8 in the fragment order of kernel 5's
+    ``mma.m16n8k16`` (weight as the 16-row A operand, ``A[n][k] =
+    W[k][n]``): for each 16-column n-tile, each pair of 16-row K tiles and
+    each lane (``g = lane // 4``, ``t = lane % 4``), 16 bytes: per K tile
+    ``W[2t][g], W[2t+1][g], W[2t][g+8], W[2t+1][g+8], W[2t+8][g],
+    W[2t+9][g], W[2t+8][g+8], W[2t+9][g+8]`` (rows and columns within the
+    tiles), i.e. A's registers ``a0a1, a2a3, a4a5, a6a7``.  -> ``[Dout /
+    16, Din / 32, 32, 16]`` int8."""
+    din, dout = q2d.shape
+    lane = torch.arange(32, device=q2d.device)
+    g, t = lane // 4, lane % 4
+    kk = torch.stack([2 * t, 2 * t + 1, 2 * t, 2 * t + 1,
+                      2 * t + 8, 2 * t + 9, 2 * t + 8, 2 * t + 9], 1)
+    nn = torch.stack([g, g, g + 8, g + 8, g, g, g + 8, g + 8], 1)
+    tiles = q2d.reshape(din // 16, 16, dout // 16, 16).permute(2, 0, 1, 3)
+    frag = tiles[:, :, kk, nn]                        # [nt, kt, 32, 8]
+    return (frag.reshape(dout // 16, din // 32, 2, 32, 8).transpose(2, 3)
+            .reshape(dout // 16, din // 32, 32, 16).contiguous())
 
 
 def int8_matmul_supported(shape, chunk_elems: int) -> bool:
@@ -182,15 +231,6 @@ def _layout_or_raise(qt):
     return layout
 
 
-def _splits(n_blocks: int, din: int, kt: int = 64, target: int = 264):
-    """K splits for kernel 5: enough blocks for two waves on 132 SMs,
-    never a split thinner than one 64-row K tile."""
-    splits = max(1, min(target // max(n_blocks, 1), -(-din // kt)))
-    k_per = -(-din // splits)
-    k_per = -(-k_per // kt) * kt
-    return -(-din // k_per), k_per
-
-
 def int8_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
     """``x @ dequantize(qt)`` without materializing the weight:
     ``x [..., Din] -> [..., Dout]`` in ``x.dtype``.  A CPU tensor runs
@@ -210,17 +250,17 @@ def int8_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
         raise ValueError("int8_matmul: int8 payload not 4-byte aligned")
     m = x2.shape[0]
     out = torch.empty((m, dout), dtype=x.dtype, device=x.device)
-    n_blocks = (-(-(dout // 4) // 64)) * (-(-m // 8))
-    splits, k_per = _splits(n_blocks, din)
-    ws = (torch.empty((splits, m, dout), dtype=torch.float32,
-                      device=x.device) if splits > 1 else out)
+    # bf16 runs on the tensor cores from the packed payload where the
+    # shape allows it and M >= 3 (the kernel decides)
+    packed = qt.tc_packed() if x.dtype == torch.bfloat16 else None
+    # one launch: the kernel picks its K split (within a CTA, and across a
+    # thread block cluster for small weights) from the shapes alone
     INT8_MATMUL.call(
-        "int8_matmul", "ipppppiiiiiip",
+        "int8_matmul", "ipppppiiiip",
         0 if x.dtype == torch.float32 else 1, x2.data_ptr(),
-        q2d.data_ptr(), scales.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        m, din, dout, dout // bands, splits, k_per, stream_ptr(x))
-    # one count per call of kernel 5; with splits > 1 the call is two
-    # launches (the K-split product, then the fixed-order split reduction)
+        q2d.data_ptr(), 0 if packed is None else packed.data_ptr(),
+        scales.data_ptr(), out.data_ptr(), m, din, dout, dout // bands,
+        stream_ptr(x))
     INT8_MATMUL.launches += 1
     return out.reshape(*x.shape[:-1], dout)
 
