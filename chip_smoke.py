@@ -70,13 +70,32 @@ Phases (any failure exits non-zero and prints no result line):
    must agree within the stated tolerance.  One further step of each run
    is traced with ``torch.profiler``: device busy time against the step's
    wall time, and the kernels that take most of it.
+5. **The conv-net path at full width**, through ``BSP(...).init(...)``
+   and ``.wait()`` with ``modelfile="theanompi_torch.models.resnet50"`` —
+   ``bench.py:102-107``'s ResNet-50 (224², 1000 classes, stages (3, 4, 6,
+   3), the conv7 stem, lr 0.1, Nesterov momentum, weight decay) at batch
+   256 on the synthetic ImageNet shards, 8 steps and 1 validation batch,
+   in bf16 and fp32 (fp32 at batch 128 if 256 does not fit).  Each step's
+   loss must be finite, the first batch's loss (batch statistics) after
+   the last step below its loss at step 1, every BN's running mean off
+   zero, and none of the five kernels launched.  Printed: step ms p50 (the
+   recorder's ``calc``, which ends in a sync), images/s, the host data
+   plane's ``wait`` p50 beside it, the analytic-FLOPs utilization
+   estimate, peak memory, and one more step traced by ``torch.profiler``
+   (busy against wall, the kernel groups, the BN forwards' and the
+   optimizer's device time).  Then one fp32 step at batch 8 on the card
+   and on the CPU from the fp32 run's weights, state and momentum: loss,
+   global grad norm, new BN state and updated params must agree within
+   the stated tolerance.
 
 ``python3 chip_smoke.py --decode`` runs phase 1 and kernels 4 and 5 of
-phase 2 only, and prints no result line.
+phase 2 only, and prints no result line; ``--conv`` runs phases 1 and 5
+only, and prints no result line.
 
 Output: the ``nvidia-smi`` line, one line per check, the serve reports,
-the training lines, then ``{"kernels": [...]}`` and, last, ``{"ok": true,
-"device": {...}}``.  fp32 products run without TF32 throughout.
+the training lines, the conv-net lines, then ``{"kernels": [...]}`` and,
+last, ``{"ok": true, "device": {...}}``.  fp32 products run without TF32
+throughout.
 """
 
 from __future__ import annotations
@@ -864,7 +883,7 @@ def serve_run(torch, precision, quant, smi, kernels):
 
     # the CLI's weights again (its seeded init), through the kernel path
     # and through the plain one
-    params = TransformerLM(cfg).init_params(
+    params, _ = TransformerLM(cfg).init_params(
         torch.Generator().manual_seed(args.seed))
     geometry = dict(block_size=args.block_size, max_batch=args.max_batch,
                     quantize_int8=quant, seed=args.seed)
@@ -957,8 +976,9 @@ def train_run(torch, precision, smi, kernels):
     first = next(iter(tr.model.data.train_batches(tr.global_batch, 0,
                                                   seed=tr.seed)))
     with torch.no_grad():
-        after, _ = tr.model.loss_fn(tr.params, to_device(first, tr.device),
-                                    None, train=False)
+        after, _ = tr.model.loss_fn(tr.params, tr.state,
+                                    to_device(first, tr.device), None,
+                                    train=False)
     after = float(after)
     steps_s = [w + c for w, c in zip(rec.time_history["wait"],
                                      rec.time_history["calc"])]
@@ -1052,8 +1072,8 @@ def train_parity(torch, precision):
             devices=1, model_config={**cfg, "attn_impl": impl})
         tr = rule.trainer
         batch = next(iter(tr.model.data.train_batches(PARITY_BATCH, 0)))
-        metrics, grads = loss_and_grads(tr.model, tr.params,
-                                        to_device(batch, tr.device), None)
+        _, metrics, grads = loss_and_grads(tr.model, tr.params, tr.state,
+                                           to_device(batch, tr.device), None)
         before = tr.params
         tr.train_iter(batch, cfg["lr"])
         upd = [(a - b).flatten() for (_, a), (_, b) in zip(
@@ -1080,6 +1100,267 @@ def train_parity(torch, precision):
     check(d_loss <= t_loss and d_norm <= t_norm and d_upd <= t_upd,
           f"train parity[{precision}]: kernel path differs from the plain "
           f"path")
+
+
+# -- phase 5: the conv-net path ----------------------------------------------
+
+#: ``bench.py:102-107``'s ResNet-50 (its TPU branch): batch 256, shard_size
+#: 256, image 224, 1000 classes, stages (3, 4, 6, 3), stem conv7, the
+#: model's default lr 0.1, Nesterov momentum 0.9, weight decay 1e-4;
+#: 8 training steps (n_train 2048) and 1 validation batch (n_val 256)
+CONV_CFG = {"batch_size": 256, "shard_size": 256, "image_size": 224,
+            "n_classes": 1000, "stage_blocks": (3, 4, 6, 3),
+            "stem": "conv7", "n_train": 2048, "n_val": 256, "n_epochs": 1}
+CONV_STEPS = CONV_CFG["n_train"] // CONV_CFG["batch_size"]
+#: ``bench.py:82``'s analytic forward + backward FLOPs of one image
+CONV_FLOPS_PER_IMAGE = 3 * 4.1e9
+#: the card-against-CPU step: fp32 (TF32 off) at batch 8, from the fp32
+#: run's trained weights (every block's last BN scale off zero, so every
+#: conv gets a gradient), its BN state and momentum.  (loss, global grad
+#: norm, new BN state, updated params) relative tolerances.  The update's
+#: is 5e-3, set from a measurement: at these weights the backward through
+#: 53 BN layers at batch 8 is ill-conditioned in fp32, card and CPU 1.33e-3
+#: and 1.19e-3 apart in two runs, the card's update 5.2e-4 and the CPU's
+#: 1.2e-3 from the same step in float64 on the CPU (NVIDIA H100 80GB HBM3,
+#: 700 W), so neither is at fault.  The step is also held to the float64
+#: one: the card's fp32 update no farther from it than twice the CPU's
+#: fp32 update, plus 1e-4
+CONV_PARITY_BATCH = 8
+CONV_PARITY_TOL = (1e-5, 1e-4, 1e-4, 5e-3)
+
+
+def _kernel_group(name):
+    """A device kernel's group in the conv-net profile, from its name."""
+    low = name.lower()
+    if "tonhwc" in low or "tonchw" in low or "transpose" in low:
+        return "layout"
+    if any(w in low for w in ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                              "cudnn", "nhwc", "nchw")):
+        return "convolution"
+    if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "gemm"
+    if "reduce" in low or "norm" in low:
+        return "reduction"
+    if "elementwise" in low or "vectorized" in low:
+        return "elementwise"
+    return "other"
+
+
+def conv_run(torch, precision, smi, batch, kernels):
+    """ResNet-50 through ``BSP(...).init`` and ``.wait()``, the five
+    kernels' counts zeroed just before and read just after (the path
+    launches none of them).  -> the trainer."""
+    import statistics
+
+    from theanompi_torch import BSP
+    from theanompi_torch.tree import tree_leaves_with_path
+    from theanompi_torch.utils.helper_funcs import to_device
+
+    cfg = {**CONV_CFG, "precision": precision, "batch_size": batch,
+           "shard_size": batch, "n_train": CONV_STEPS * batch,
+           "n_val": batch}
+    rule = BSP({"print_freq": 1, "seed": 0, "verbose": False}).init(
+        devices=1, modelfile="theanompi_torch.models.resnet50",
+        modelclass="ResNet50", model_config=cfg)
+    tr = rule.trainer
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rec = rule.wait()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = rec.train_history["cost"]
+    first = next(iter(tr.model.data.train_batches(batch, 0, seed=tr.seed)))
+    with torch.no_grad():
+        # batch statistics, as the step-1 loss was taken (the running
+        # statistics are 8 steps into their 0.9 average)
+        after, _ = tr.model.loss_fn(tr.params, tr.state,
+                                    to_device(first, tr.device), None,
+                                    train=True)
+    after = float(after)
+    means = [x for p, x in tree_leaves_with_path(tr.state)
+             if p[-1] == "mean"]
+    moved = sum(bool((m != 0).any()) for m in means)
+    calc, wait = rec.time_history["calc"], rec.time_history["wait"]
+    p50, wait50 = statistics.median(calc), statistics.median(wait)
+    util = CONV_FLOPS_PER_IMAGE * batch / p50 / PEAK_FLOPS["bfloat16"]
+    print(f"conv[{precision}] {smi}: ResNet-50 batch {batch} losses="
+          f"{losses} step_ms={[round(x * 1e3, 3) for x in calc]} "
+          f"step_ms_p50={p50 * 1e3:.3f} images/s={batch / p50:.1f} "
+          f"wait_ms_p50={wait50 * 1e3:.3f} (the host data plane, outside "
+          f"the step) analytic-FLOPs utilization (estimate, 3 x 4.1e9 "
+          f"FLOPs an image vs 989 TFLOP/s bf16)={util:.4f} "
+          f"val={ {k: v[-1] for k, v in rec.val_history.items()} } "
+          f"first-batch loss (batch statistics) before step 1 "
+          f"{losses[0]:.7g}, after step {len(losses)} {after:.7g}; BN "
+          f"running means moved off zero: {moved}/{len(means)}; peak "
+          f"memory {peak_gb:.2f} GiB; launches of the five kernels "
+          f"{launches}", flush=True)
+    check(len(losses) == CONV_STEPS and all(
+        x == x and abs(x) != float("inf") for x in losses),
+        f"conv[{precision}]: losses {losses}")
+    check(after == after and after < losses[0], f"conv[{precision}]: the "
+          f"first batch's loss did not fall ({losses[0]} -> {after})")
+    check(moved == len(means) == 53, f"conv[{precision}]: {moved} of "
+          f"{len(means)} BN running means moved off zero")
+    check(not any(launches.values()), f"conv[{precision}]: the conv-net "
+          f"path launched {launches}")
+    conv_profile(torch, tr, first, tr.model.adjust_hyperp(0), precision)
+    return tr
+
+
+def conv_profile(torch, tr, batch, lr, precision):
+    """One more step under ``torch.profiler``: device busy against wall
+    time, the kernel groups, and the device time of two named ranges, the
+    BN forwards and the optimizer update (the BN backward's kernels fall
+    in the groups)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from theanompi_torch.ops.layers import BatchNorm
+    from theanompi_torch.parallel.trainer import make_train_step
+
+    class Traced:
+        """The trainer's optimizer, its update inside a named range."""
+
+        def __init__(self, opt):
+            self.opt = opt
+
+        def update(self, *args):
+            with record_function("optimizer"):
+                return self.opt.update(*args)
+
+    bn_apply = BatchNorm.apply_stateful
+
+    def traced_bn(self, *args, **kwargs):
+        with record_function("bn_forward"):
+            return bn_apply(self, *args, **kwargs)
+
+    tr.train_iter(batch, lr)                      # warm, outside the window
+    torch.cuda.synchronize()
+    tr._step_fn = make_train_step(tr.model, Traced(tr.optimizer),
+                                  tr.exchanger, tr.seed, tr.device)
+    BatchNorm.apply_stateful = traced_bn
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.train_iter(batch, lr)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        BatchNorm.apply_stateful = bn_apply
+        tr.compile_iter_fns()
+    ranges = ("optimizer", "bn_forward")
+    averages = prof.key_averages()
+    events = [e for e in averages
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0 and e.key not in ranges
+              and not getattr(e, "is_user_annotation", False)]
+    if not events:
+        print(f"profile conv[{precision}]: the profiler saw no device time "
+              f"(device busy share not measured)", flush=True)
+        return
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    groups = {}
+    for e in events:
+        g = _kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+    in_range = {e.key: e.device_time_total / 1e3 for e in averages
+                if e.key in ranges and e.device_type == DeviceType.CPU}
+    print(f"profile conv[{precision}] one step: wall {wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms (idle share "
+          f"{max(0.0, 1 - busy_ms / wall_ms):.3f}); by group (ms): "
+          + ", ".join(f"{k}={v:.3f}" for k, v in sorted(
+              groups.items(), key=lambda kv: -kv[1]))
+          + "; in ranges (ms): " + ", ".join(
+              f"{k}={in_range.get(k, 0.0):.3f}" for k in ranges),
+          flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"profile conv[{precision}]   "
+              f"{e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} "
+              f"[{_kernel_group(e.key)}] {e.key[:100]}", flush=True)
+
+
+def conv_parity(torch, trained):
+    """One fp32 step at batch 8 on the card and on the CPU, from the same
+    weights, state, momentum and batch: loss, global grad norm, the new
+    BN state and the updated params; and the same step in float64 on the
+    CPU, which both fp32 steps are held to."""
+    from theanompi_torch.models.resnet50 import ResNet50
+    from theanompi_torch.ops.opt import global_sq_norm
+    from theanompi_torch.parallel.mesh import Precision
+    from theanompi_torch.parallel.trainer import loss_and_grads
+    from theanompi_torch.tree import tree_leaves_with_path, tree_map
+    from theanompi_torch.utils.helper_funcs import to_device
+
+    b = CONV_PARITY_BATCH
+    cfg = {**CONV_CFG, "precision": "fp32", "batch_size": b,
+           "shard_size": b, "n_train": b, "n_val": b}
+    model = ResNet50(cfg)
+    batch = next(iter(model.data.train_batches(b, 0)))
+    lr = model.adjust_hyperp(0)
+
+    def flat(tree):
+        return torch.cat([x.double().flatten().cpu()
+                          for _, x in tree_leaves_with_path(tree)])
+
+    out = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                       ("cpu", torch.float64)):
+        model.precision = Precision(dtype)
+
+        def put(tree):
+            return tree_map(lambda x: x.to(dev, dtype), tree)
+
+        params = put(trained.params)
+        new_state, metrics, grads = loss_and_grads(
+            model, params, put(trained.state), to_device(batch, dev), None)
+        with torch.no_grad():
+            new_params, _ = trained.optimizer.update(
+                grads, put(trained.opt_state), params, lr)
+        out[dev, dtype] = (float(metrics["cost"]),
+                           float(torch.sqrt(global_sq_norm(grads))),
+                           flat(new_state), flat(new_params) - flat(params))
+    (lc, gc, sc, uc), (lh, gh, sh, uh), (_, _, _, u64) = out.values()
+    d = (abs(lc - lh) / abs(lh), abs(gc - gh) / gh,
+         float((sc - sh).norm() / sh.norm()),
+         float((uc - uh).norm() / uh.norm()))
+    exact_c = float((uc - u64).norm() / u64.norm())
+    exact_h = float((uh - u64).norm() / u64.norm())
+    print(f"conv parity[fp32] batch {b}, card against CPU: loss {lc:.7g} / "
+          f"{lh:.7g} (rel {d[0]:.3g}, tol {CONV_PARITY_TOL[0]:g}); grad norm "
+          f"{gc:.7g} / {gh:.7g} (rel {d[1]:.3g}, tol {CONV_PARITY_TOL[1]:g}); "
+          f"BN state |card-cpu|/|cpu| {d[2]:.3g} (tol "
+          f"{CONV_PARITY_TOL[2]:g}); update {d[3]:.3g} (tol "
+          f"{CONV_PARITY_TOL[3]:g}); update against the float64 CPU step: "
+          f"card {exact_c:.3g}, CPU fp32 {exact_h:.3g}", flush=True)
+    check(all(x <= t for x, t in zip(d, CONV_PARITY_TOL)),
+          "conv parity[fp32]: the card's step differs from the CPU's")
+    check(exact_c <= 2 * exact_h + 1e-4, "conv parity[fp32]: the card's "
+          "step is farther from the float64 step than the CPU's fp32 one")
+
+
+def conv_phase(torch, smi, kernels):
+    """Phase 5: ResNet-50 in bf16 and fp32 at batch 256 (fp32 at 128 if
+    256 does not fit in the card's memory), then the card-against-CPU
+    step."""
+    import gc
+
+    conv_run(torch, "bf16", smi, CONV_CFG["batch_size"], kernels)
+    batch = CONV_CFG["batch_size"]
+    try:
+        trained = conv_run(torch, "fp32", smi, batch, kernels)
+    except torch.cuda.OutOfMemoryError:
+        trained = None
+    if trained is None:  # outside the handler: its frames hold the memory
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"conv[fp32]: batch {batch} does not fit in the card's "
+              f"memory, cut to {batch // 2}", flush=True)
+        trained = conv_run(torch, "fp32", smi, batch // 2, kernels)
+    conv_parity(torch, trained)
 
 
 def main() -> int:
@@ -1129,6 +1410,10 @@ def main() -> int:
     check_hgmma(K)
 
     # -- phase 2 -----------------------------------------------------------
+    if "--conv" in sys.argv[1:]:
+        # development run: phase 5 only, no result line
+        conv_phase(torch, smi, K.KERNELS)
+        return 0
     if "--decode" in sys.argv[1:]:
         # development run: kernels 4 and 5 only, no result line
         checks = {"paged_decode": check_paged(torch),
@@ -1172,6 +1457,9 @@ def main() -> int:
           + ", ".join(f"{k}={train_launches[k] / TRAIN_STEPS:g}"
                       for k in ("flash_fwd", "flash_bwd_dq",
                                 "flash_bwd_dkv")), flush=True)
+    # -- phase 5 -----------------------------------------------------------
+    conv_phase(torch, smi, K.KERNELS)
+
     # the serving slice's kernels report their serve run; the flash
     # kernels the training run, which launches all three
     for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):

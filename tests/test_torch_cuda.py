@@ -183,7 +183,7 @@ def test_engine_auto_raises_where_a_kernel_refuses_the_geometry(
     cfg = {"dim": dim, "heads": heads, "n_layers": 1, "seq_len": 64,
            "vocab": vocab, "precision": "fp32"}
     model = TransformerLM(cfg)
-    params = model.init_params(torch.Generator().manual_seed(0))
+    params, _ = model.init_params(torch.Generator().manual_seed(0))
     engine = InferenceEngine(model, params, block_size=block_size,
                              max_batch=2, quantize_int8=quant)
     assert engine.decode_impl == "kernel"

@@ -55,7 +55,7 @@ def _caches(jm, n_blocks=12, batch=2):
 
 def test_param_trees_line_up(pair):
     _, jp, tm, tp = pair
-    mine = tm.init_params(torch.Generator().manual_seed(0))
+    mine, _ = tm.init_params(torch.Generator().manual_seed(0))
 
     def flat(t):
         return {"/".join(p): tuple(x.shape)

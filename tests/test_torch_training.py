@@ -100,7 +100,8 @@ def test_loss_metrics_and_every_grad_leaf(pair):
     loss, metrics, g, _, _ = _jax_step(jm, jm.build_optimizer(), jp,
                                        jm.build_optimizer().init(jp), jb,
                                        0.05)
-    tmet, tg = loss_and_grads(tm, tp, to_device(batches[0], "cpu"), None)
+    _, tmet, tg = loss_and_grads(tm, tp, {}, to_device(batches[0], "cpu"),
+                                 None)
     np.testing.assert_allclose(float(tmet["cost"]), float(loss), rtol=RTOL,
                                atol=ATOL)
     for k in ("error", "error_top5", "perplexity"):
@@ -120,7 +121,8 @@ def test_params_after_one_step_and_loss_after_three(pair):
     for i in range(3):
         jb = {k: jnp.asarray(v) for k, v in batches[i].items()}
         jloss, _, _, jp, js = _jax_step(jm, jo, jp, js, jb, lr)
-        tp, ts, tmet = step(tp, ts, to_device(batches[i], "cpu"), lr, i)
+        tp, _, ts, tmet = step(tp, {}, ts, to_device(batches[i], "cpu"), lr,
+                               i)
         np.testing.assert_allclose(float(tmet["cost"]), float(jloss),
                                    rtol=RTOL, atol=ATOL)
         if i == 0:
@@ -128,7 +130,8 @@ def test_params_after_one_step_and_loss_after_three(pair):
     # the loss after three steps, on the next batch
     jb = {k: jnp.asarray(v) for k, v in batches[3].items()}
     jl, _ = jm.loss_fn(jp, {}, jb, None, train=False)
-    tl, _ = tm.loss_fn(tp, to_device(batches[3], "cpu"), None, train=False)
+    tl, _ = tm.loss_fn(tp, {}, to_device(batches[3], "cpu"), None,
+                       train=False)
     np.testing.assert_allclose(float(tl), float(jl), rtol=RTOL, atol=ATOL)
 
 
@@ -137,15 +140,15 @@ def test_n_subb_2_equals_the_full_batch(variant):
     cfg = {**TINY, **VARIANTS[variant], "batch_size": 4}
     full = TransformerLM(dict(cfg))
     micro = TransformerLM({**cfg, "n_subb": 2})
-    params = full.init_params(torch.Generator().manual_seed(3))
+    params, state = full.init_params(torch.Generator().manual_seed(3))
     batch = to_device(next(full.data.train_batches(4, 0, seed=0)), "cpu")
     outs = []
     for model in (full, micro):
         step = make_train_step(model, model.build_optimizer(),
                                Exchanger("psum"), 0, torch.device("cpu"))
-        outs.append(step(params, model.init_opt_state(
+        outs.append(step(params, state, model.init_opt_state(
             model.build_optimizer(), params), batch, 0.05, 0))
-    (pf, _, mf), (pm, _, mm) = outs
+    (pf, _, _, mf), (pm, _, _, mm) = outs
     for k in ("cost", "error", "perplexity"):
         np.testing.assert_allclose(float(mm[k]), float(mf[k]), rtol=RTOL,
                                    atol=ATOL)
@@ -200,7 +203,7 @@ def test_default_configs_agree_on_every_key_the_port_reads():
     assert mine["dropout"] == 0.1
     # serving still runs with dropout off: train=False never drops
     m = TransformerLM({**TINY, "vocab": 64, "dropout": 0.5})
-    p = m.init_params(torch.Generator().manual_seed(0))
+    p, _ = m.init_params(torch.Generator().manual_seed(0))
     toks = torch.arange(32).reshape(2, 16) % 64
     a = m.apply_logits(p, toks)
     assert torch.equal(a, m.apply_logits(p, toks))

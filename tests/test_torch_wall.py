@@ -2,9 +2,9 @@
 default.
 
 - a fresh interpreter imports the port's serving and training stacks
-  (the BSP rule, the launcher, the losses) and ``chip_smoke.py`` (as a
-  module) without ``jax`` or ``theanompi_tpu`` ever entering
-  ``sys.modules``;
+  (the BSP rule, the launcher, the losses, the conv nets and their data
+  planes) and ``chip_smoke.py`` (as a module) without ``jax`` or
+  ``theanompi_tpu`` ever entering ``sys.modules``;
 - no file of ``theanompi_torch/`` (nor ``chip_smoke.py``) imports either;
 - entry points called without ``device`` on a machine with no CUDA raise
   instead of running on the CPU (the launcher exits non-zero), and the
@@ -44,6 +44,10 @@ def test_import_wall_in_a_fresh_interpreter():
         "import theanompi_torch.convert, theanompi_torch.kernels\n"
         "import theanompi_torch.parallel.bsp, theanompi_torch.launcher\n"
         "import theanompi_torch.ops.losses\n"
+        "import theanompi_torch.models.resnet50\n"
+        "import theanompi_torch.models.wide_resnet\n"
+        "import theanompi_torch.models.data.imagenet\n"
+        "import theanompi_torch.models.data.cifar10\n"
         "from theanompi_torch import BSP\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -89,7 +93,7 @@ def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
     model = TransformerLM({"dim": 16, "heads": 2, "n_layers": 1,
                            "seq_len": 16, "vocab": 12,
                            "precision": "fp32"})
-    params = model.init_params(torch.Generator().manual_seed(0))
+    params, _ = model.init_params(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA"):
         InferenceEngine(model, params, block_size=4, max_batch=1)
     with pytest.raises(RuntimeError, match="no CUDA"):

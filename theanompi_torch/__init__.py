@@ -7,16 +7,24 @@ under :mod:`theanompi_torch.kernels`.
 
 Slice 1 serves the dense ``TransformerLM`` end to end; slice 2 trains it
 through the BSP rule on one card (:class:`BSP`, ``python -m
-theanompi_torch.launcher``):
+theanompi_torch.launcher``); slice 10 trains the conv nets, ResNet-50 and
+the Wide-ResNet, through the same rule:
 
 - :mod:`theanompi_torch.parallel.mesh` — ``Precision`` policies and the
   device rule (``resolve_device``);
 - :mod:`theanompi_torch.ops` — initializers, ``Dense``/``LayerNorm``/
-  ``Embedding``, the int8 weight format and matmul (kernel 5), flash
-  attention forward (kernel 1), paged decode attention (kernel 4) and the
-  attention layer;
+  ``Embedding``, the conv nets' layers (``Conv2D``, the pools,
+  ``BatchNorm``, ``Sequential``), the int8 weight format and matmul
+  (kernel 5), flash attention forward (kernel 1), paged decode attention
+  (kernel 4) and the attention layer;
+- :mod:`theanompi_torch.models.contract` — the model contract
+  (``Model``, ``SupervisedModel``), params and state;
 - :mod:`theanompi_torch.models.transformer_lm` — the model's training and
   serving paths, on :mod:`theanompi_torch.models.lstm`'s ``PTBData``;
+- :mod:`theanompi_torch.models.resnet50` and
+  :mod:`theanompi_torch.models.wide_resnet` — the conv nets, on
+  :mod:`theanompi_torch.models.data.imagenet` and
+  :mod:`theanompi_torch.models.data.cifar10`;
 - :mod:`theanompi_torch.ops.losses`, :mod:`theanompi_torch.ops.opt` — the
   fused chunked LM cross entropy, SGD;
 - :mod:`theanompi_torch.parallel.bsp` — the BSP rule and its trainer, and
@@ -24,8 +32,8 @@ theanompi_torch.launcher``):
 - :mod:`theanompi_torch.serving` — paged KV cache, engine, prefix cache,
   continuous-batching scheduler and the ``python -m
   theanompi_torch.serving`` CLI;
-- :mod:`theanompi_torch.convert` — the reference's param trees into the
-  port's.
+- :mod:`theanompi_torch.convert` — the reference's param and state trees
+  into the port's and back.
 
 Importing the package imports neither JAX nor anything that builds a
 kernel: the CUDA sources compile at first use.

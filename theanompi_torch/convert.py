@@ -1,12 +1,23 @@
-"""Reference weights into the port: param trees and int8 payloads.
+"""Reference weights into the port and back: param trees, model state
+and int8 payloads.
 
-The reference's param tree (nested dicts of arrays, handed over as numpy)
-maps 1:1 onto the port's: the same keys — ``00_embedding``,
-``01_positionembedding``, ``NN__block/{ln1, attn/{q,k,v,o}, ln2, up,
-down}``, the final ``NN_layernorm`` and ``head`` — and the same layouts.
-Dense weights stay ``[Din, Dout]`` used as ``x @ w``: the int8 chunk and
-band layout depends on that row-major flatten, so nothing is transposed
-into ``nn.Linear``'s layout.
+The reference's trees (nested dicts of arrays, handed over as numpy) map
+1:1 onto the port's, under the same keys:
+
+- ``TransformerLM``: ``00_embedding``, ``01_positionembedding``,
+  ``NN__block/{ln1, attn/{q,k,v,o}, ln2, up, down}``, the final
+  ``NN_layernorm`` and ``head``;
+- the conv nets: ``00_conv2d`` or ``00__spacetodepthstem``,
+  ``NN_batchnorm``, ``NN__wrnblock/...``, ``NN__bottleneck/...`` and
+  ``NN_dense``; their state (BatchNorm's ``mean``/``var``) under the
+  same keys.
+
+Layouts: conv kernels are the one leaf that changes.  The reference holds
+them HWIO ``[kh, kw, in, out]``, the port OIHW ``[out, in, kh, kw]``
+(``F.conv2d``'s), so every 4-D leaf is transposed on the way in and back
+on the way out.  Dense weights stay ``[Din, Dout]`` used as ``x @ w``: the
+int8 chunk and band layout depends on that row-major flatten, so nothing
+is transposed into ``nn.Linear``'s layout.
 """
 
 from __future__ import annotations
@@ -19,29 +30,63 @@ import torch
 from theanompi_torch.ops.quant import QuantizedTensor
 
 _TOP_KEY = re.compile(
-    r"^(\d{2}_(embedding|positionembedding|_block|layernorm)|head)$")
+    r"^(\d{2}_(embedding|positionembedding|_block|layernorm|conv2d|"
+    r"batchnorm|_wrnblock|_bottleneck|_spacetodepthstem|dense)|head)$")
+#: HWIO -> OIHW, and back
+_TO_OIHW, _TO_HWIO = (3, 2, 0, 1), (2, 3, 1, 0)
 
 
 def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True))
 
 
-def params_from_jax(tree) -> dict:
-    """The reference's ``TransformerLM`` param tree (nested dicts of numpy
-    arrays) -> the port's (nested dicts of CPU tensors, same dtypes).
-    Raises ``KeyError`` on a top-level key the port has no layer for."""
+def _walk(tree, leaf, what):
+    """Convert ``tree`` leaf by leaf; raises ``KeyError`` on a top-level
+    key the port has no layer for."""
+    def node(x):
+        return {k: node(v) for k, v in x.items()} if isinstance(
+            x, dict) else leaf(x)
+
     out = {}
     for key, sub in tree.items():
         if not _TOP_KEY.match(key):
-            raise KeyError(f"params_from_jax: no port layer for {key!r}")
-        out[key] = _convert(sub)
+            raise KeyError(f"{what}: no port layer for {key!r}")
+        out[key] = node(sub)
     return out
 
 
-def _convert(node):
-    if isinstance(node, dict):
-        return {k: _convert(v) for k, v in node.items()}
-    return _tensor(node)
+def _from_jax(x) -> torch.Tensor:
+    t = _tensor(x)
+    return t.permute(*_TO_OIHW).contiguous() if t.ndim == 4 else t
+
+
+def _to_jax(t) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.permute(*_TO_HWIO) if t.ndim == 4 else t).numpy().copy()
+
+
+def params_from_jax(tree) -> dict:
+    """The reference's param tree (nested dicts of numpy arrays) -> the
+    port's (nested dicts of CPU tensors, same dtypes; conv kernels
+    OIHW)."""
+    return _walk(tree, _from_jax, "params_from_jax")
+
+
+def params_to_jax(tree) -> dict:
+    """The port's param tree -> the reference's (numpy; conv kernels
+    HWIO): the inverse of :func:`params_from_jax`."""
+    return _walk(tree, _to_jax, "params_to_jax")
+
+
+def state_from_jax(tree) -> dict:
+    """The reference's model state (BatchNorm ``mean``/``var``, numpy) ->
+    the port's (CPU tensors)."""
+    return _walk(tree, _tensor, "state_from_jax")
+
+
+def state_to_jax(tree) -> dict:
+    """The port's model state -> the reference's (numpy)."""
+    return _walk(tree, _to_jax, "state_to_jax")
 
 
 def quantized_from_jax(q, scales, shape, dtype) -> QuantizedTensor:

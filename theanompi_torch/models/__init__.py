@@ -1,2 +1,3 @@
 """Models of the port: the dense ``TransformerLM`` (training and serving)
-and its PTB-style data."""
+on its PTB-style data, and the conv nets ``ResNet50`` and ``WideResNet``
+on their image data (:mod:`theanompi_torch.models.data`)."""

@@ -1,7 +1,7 @@
 """The model contract: the interface the rules drive models through.
 
 Counterpart of ``theanompi_tpu/models/contract.py`` (``Model`` :35 and
-the training hooks of ``SupervisedModel`` :124) for one process.  The
+``SupervisedModel`` :124) for one process.  The
 model owns what is trained: its config (``default_config`` merged with the caller's), the
 precision policy (``precision``: ``"bf16"``, the default, or anything else
 for fp32), ``batch_size``/``n_epochs``, its data (``build_data``, built at
@@ -9,13 +9,22 @@ first use, so a serving process never builds a training set), the
 optimizer choice (``build_optimizer``: SGD from the config), the LR
 schedule (``adjust_hyperp``), ``init_params`` and ``loss_fn``.  The
 rule's trainer owns how steps run.
+
+Every model carries state beside its params, as the reference's do:
+``init_params(gen) -> (params, state)`` and ``loss_fn(params, state,
+batch, gen, train) -> (loss, (new_state, metrics))``.  State is the
+non-learned buffers (BatchNorm's running statistics), fp32, never cast
+to the compute dtype; a model without any (``TransformerLM``) has ``{}``.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
-from theanompi_torch.ops.opt import SGD
+import torch
+
+from theanompi_torch.ops.losses import softmax_cross_entropy, top_k_error
+from theanompi_torch.ops.opt import SGD, global_sq_norm
 from theanompi_torch.parallel.mesh import BF16, FP32, Precision
 
 
@@ -57,12 +66,13 @@ class Model:
 
     # -- what the trainer runs ----------------------------------------------
     def init_params(self, gen):
-        """-> fp32 param tree on ``gen``'s device."""
+        """-> (fp32 param tree, state tree) on ``gen``'s device."""
         raise NotImplementedError
 
-    def loss_fn(self, params, batch, gen, train: bool):
-        """-> (loss, metrics).  ``gen`` is the dropout generator (None
-        outside training)."""
+    def loss_fn(self, params, state, batch, gen, train: bool):
+        """-> (loss, (new_state, metrics)).  ``gen`` is the dropout
+        generator (None outside training); ``train=False`` returns the
+        state unchanged."""
         raise NotImplementedError
 
     # -- schedule -----------------------------------------------------------
@@ -78,3 +88,63 @@ class Model:
     def cleanup(self) -> None:
         if self._data is not None:
             self._data.cleanup()
+
+
+class SupervisedModel(Model):
+    """Classification models: a net of :mod:`theanompi_torch.ops.layers`,
+    softmax cross entropy and top-k error.
+
+    Subclasses implement ``build_net() -> (net, in_shape)``, the net a
+    stateful layer (``init_stateful``/``apply_stateful``) and ``in_shape``
+    one example's ``(C, H, W)``.  Batches are ``{"x": [B, H, W, C], "y":
+    [B] int}``, NHWC as the data planes yield them; :meth:`prepare_x`
+    turns ``x`` into the compute dtype and the NCHW view the layers take.
+    Auxiliary heads (GoogLeNet's) come with those models."""
+
+    def __init__(self, config=None):
+        super().__init__(config)
+        self.net, self.in_shape = self.build_net()
+
+    def build_net(self):
+        raise NotImplementedError
+
+    def init_params(self, gen):
+        params, state, _ = self.net.init_stateful(gen, self.in_shape)
+        return params, state
+
+    def apply_net(self, params, state, x, train: bool, gen=None):
+        """-> (logits, new_state)."""
+        return self.net.apply_stateful(params, state, x, train, gen)
+
+    def prepare_x(self, x):
+        """A batch's ``x`` on the device -> the compute dtype, NCHW.
+        uint8 images (they cross to the card as bytes, 4x fewer than fp32)
+        are cast here and normalized with the dataset's ``norm_stats``
+        (mean, 1/std), both in the compute dtype; the permute of an NHWC
+        batch is a view, in ``channels_last`` memory, the layout cuDNN's
+        NHWC convolutions read."""
+        stats = (getattr(self.data, "norm_stats", None)
+                 if x.dtype == torch.uint8 else None)
+        x = x.to(self.precision.compute_dtype)
+        if stats is not None:
+            mean, inv_std = (torch.as_tensor(s, dtype=x.dtype,
+                                             device=x.device) for s in stats)
+            x = (x - mean) * inv_std
+        return x.permute(0, 3, 1, 2)
+
+    def loss_fn(self, params, state, batch, gen, train: bool):
+        """-> (loss, (new_state, metrics ``cost/error/error_top5``)); the
+        loss adds ``l2 * |params|^2`` when the config sets ``l2``."""
+        x = self.prepare_x(batch["x"])
+        cp = self.precision.cast_to_compute(params)
+        logits, new_state = self.apply_net(cp, state, x, train, gen)
+        y = batch["y"]
+        loss = softmax_cross_entropy(logits, y)
+        if self.config.get("l2", 0.0):
+            loss = loss + self.config["l2"] * global_sq_norm(params)
+        err5 = (top_k_error(logits, y, k=5) if logits.shape[-1] >= 5
+                else torch.zeros((), device=logits.device))
+        metrics = {"cost": loss.detach(),
+                   "error": top_k_error(logits, y, k=1).detach(),
+                   "error_top5": err5.detach()}
+        return loss, (new_state, metrics)

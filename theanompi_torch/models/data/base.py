@@ -1,18 +1,26 @@
 """Dataset protocol, stable seed derivation, the synthetic token stream.
 
 Counterpart of ``theanompi_tpu/models/data/base.py`` (``derive_seed`` :27,
-``Dataset`` :149, ``SyntheticSequenceDataset`` :266), numpy only, so the
-same seed gives the reference's arrays bit for bit.  Iterators yield
-**global** batches as numpy dicts ``{"x": [B, ...], "y": [B, ...]}`` with
-constant shapes; ragged final batches are dropped.  The image datasets,
-the read-retry plane and the prefetcher come with later slices.
+``read_with_retry`` :105, ``Dataset`` :149, ``ArrayDataset`` :199,
+``_class_structured`` :236, ``SyntheticDataset`` :254,
+``SyntheticSequenceDataset`` :266), numpy only, so the same seed gives the
+reference's arrays bit for bit.  Iterators yield **global** batches as
+numpy dicts ``{"x": [B, ...], "y": [B, ...]}`` with constant shapes;
+ragged final batches are dropped.  The read-retry plane's telemetry and
+fault-injection hooks, and the prefetcher, come with later slices.
 """
 
 from __future__ import annotations
 
 import hashlib
+import sys
+import time
 
 import numpy as np
+
+
+class DataReadError(RuntimeError):
+    """A dataset read kept failing after the bounded retries."""
 
 
 def derive_seed(*parts) -> int:
@@ -23,6 +31,27 @@ def derive_seed(*parts) -> int:
     text = "\x1f".join(repr(p) for p in parts)
     digest = hashlib.sha256(text.encode("utf-8")).digest()
     return int.from_bytes(digest[:8], "little") % (2**31)
+
+
+def read_with_retry(fn, what: str, retries: int = 4,
+                    backoff_s: float = 0.05, sleep=time.sleep):
+    """Run the read ``fn()``, retrying ``OSError`` and numpy's torn-read
+    ``ValueError`` up to ``retries`` times with doubling backoff; then
+    raise :class:`DataReadError` carrying the last cause."""
+    retries = max(1, int(retries))
+    last: Exception | None = None
+    for attempt in range(1, retries + 1):
+        try:
+            return fn()
+        except (OSError, ValueError) as e:
+            last = e
+            if attempt < retries:
+                print(f"data: read of {what} failed "
+                      f"(attempt {attempt}/{retries}): {e}; retrying",
+                      file=sys.stderr, flush=True)
+                sleep(backoff_s * (2 ** (attempt - 1)))
+    raise DataReadError(
+        f"could not read {what} after {retries} attempts: {last}") from last
 
 
 class Dataset:
@@ -59,6 +88,68 @@ class Dataset:
 
     def cleanup(self) -> None:
         pass
+
+
+class ArrayDataset(Dataset):
+    """In-memory arrays with per-epoch shuffling and optional
+    augmentation ``augment_fn(x, rng) -> x``."""
+
+    def __init__(self, x_train, y_train, x_val, y_val, n_classes,
+                 augment_fn=None):
+        self.x_train, self.y_train = x_train, y_train
+        self.x_val, self.y_val = x_val, y_val
+        self.n_train, self.n_val = len(x_train), len(x_val)
+        self.sample_shape = tuple(x_train.shape[1:])
+        self.n_classes = n_classes
+        self.augment_fn = augment_fn
+
+    def epoch_order(self, epoch, seed=0):
+        """The epoch's sample permutation, a pure function of (seed,
+        epoch), so a cursor fast-forward re-derives it without replay."""
+        rng = np.random.RandomState(derive_seed("shuffle", seed, epoch))
+        return rng.permutation(self.n_train)
+
+    def train_batches(self, batch_size, epoch, seed=0, start_batch=0):
+        order = self.epoch_order(epoch, seed)
+        for i in range(int(start_batch), self.n_train_batches(batch_size)):
+            idx = order[i * batch_size: (i + 1) * batch_size]
+            x = self.x_train[idx]
+            if self.augment_fn is not None:
+                # keyed on the batch, not drawn from the permutation's
+                # stream: batch i is recomputable alone
+                rng = np.random.RandomState(
+                    derive_seed("augment", seed, epoch, i))
+                x = self.augment_fn(x, rng)
+            yield {"x": x, "y": self.y_train[idx]}
+
+    def val_batches(self, batch_size):
+        for i in range(self.n_val_batches(batch_size)):
+            sl = slice(i * batch_size, (i + 1) * batch_size)
+            yield {"x": self.x_val[sl], "y": self.y_val[sl]}
+
+
+def _class_structured(n, shape, n_classes, seed, noise=0.3, means_seed=0):
+    """Learnable synthetic data, one Gaussian blob per class (the stand-in
+    for real datasets, which are not in the repository); ``means_seed``
+    fixes the class means apart from the sample draw, so train and val
+    share one distribution."""
+    dim = int(np.prod(shape))
+    means = np.random.RandomState(means_seed).randn(
+        n_classes, dim).astype(np.float32)
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, n_classes, size=n).astype(np.int32)
+    x = means[y] + noise * rng.randn(n, dim).astype(np.float32)
+    return x.reshape(n, *shape), y
+
+
+class SyntheticDataset(ArrayDataset):
+    def __init__(self, n_train=1024, n_val=256, sample_shape=(8, 8, 3),
+                 n_classes=10, seed=0, noise=0.3):
+        xt, yt = _class_structured(n_train, sample_shape, n_classes, seed,
+                                   noise, means_seed=seed)
+        xv, yv = _class_structured(n_val, sample_shape, n_classes, seed + 1,
+                                   noise, means_seed=seed)
+        super().__init__(xt, yt, xv, yv, n_classes)
 
 
 class SyntheticSequenceDataset(Dataset):

@@ -1,0 +1,251 @@
+"""ImageNet-style sharded images: uint8 shards, random crop and mirror,
+batches across shard boundaries.
+
+Counterpart of ``theanompi_tpu/models/data/imagenet.py``
+(``random_crop_mirror`` :40, ``center_crop`` :61, ``write_shards`` :80,
+``_ShardSet`` :118, ``_SyntheticShards`` :162, ``ImageNetData`` :224),
+numpy only: the same config gives the reference's batches bit for bit.
+On-disk layout under ``data_path`` (or ``$IMAGENET_PATH``)::
+
+    train/x_0000.npy  uint8 [N, S, S, 3]   (S = the stored size, e.g. 256)
+    train/y_0000.npy  int32 [N]
+    val/x_0000.npy ...
+
+Without one, deterministic synthetic shards (a per-class 8x8x3 pattern
+tiled to the stored size, plus noise, generated shard by shard) run the
+same shard, augment and batch pipeline.  Batches leave as uint8 NHWC; the
+model normalizes them on the device with :attr:`ImageNetData.norm_stats`.
+
+Not ported yet, and refused rather than ignored (ROADMAP queue 1 item 6):
+``loader_workers > 0`` (the reference's shared-memory worker pool) and
+``convert_hkl_tree`` (reference-era hickle shards).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from theanompi_torch.models.data.base import (
+    Dataset,
+    derive_seed,
+    read_with_retry,
+)
+
+#: ImageNet channel means and standard deviations in [0, 255] RGB
+MEAN_RGB = np.array([123.68, 116.78, 103.94], np.float32)
+STD_RGB = np.array([58.39, 57.12, 57.38], np.float32)
+
+
+def random_crop_mirror(x: np.ndarray, out: int, rng: np.random.RandomState):
+    """Random spatial crop of an NHWC batch to ``out`` and a horizontal
+    mirror of half of it (train augmentation; the reference's numpy
+    loop, which its C helper is tested equal to)."""
+    n, h, w, _ = x.shape
+    ys = rng.randint(0, h - out + 1, n)
+    xs = rng.randint(0, w - out + 1, n)
+    flips = rng.rand(n) < 0.5
+    res = np.empty((n, out, out, x.shape[3]), x.dtype)
+    for i in range(n):
+        img = x[i, ys[i]: ys[i] + out, xs[i]: xs[i] + out]
+        res[i] = img[:, ::-1] if flips[i] else img
+    return res
+
+
+def center_crop(x: np.ndarray, out: int):
+    h, w = x.shape[1:3]
+    y0, x0 = (h - out) // 2, (w - out) // 2
+    return x[:, y0: y0 + out, x0: x0 + out]
+
+
+def write_shards(dirpath: str, x: np.ndarray, y: np.ndarray,
+                 shard_size: int):
+    """Write arrays in the shard layout above."""
+    os.makedirs(dirpath, exist_ok=True)
+    for s, start in enumerate(range(0, len(x), shard_size)):
+        np.save(os.path.join(dirpath, f"x_{s:04d}.npy"),
+                x[start: start + shard_size])
+        np.save(os.path.join(dirpath, f"y_{s:04d}.npy"),
+                y[start: start + shard_size])
+
+
+def convert_hkl_tree(src: str, dst: str) -> None:
+    raise NotImplementedError(
+        "convert_hkl_tree: hickle shards are not ported yet (ROADMAP queue "
+        "1 item 6); write .npy shards (write_shards)")
+
+
+class _ShardSet:
+    """One split on disk: (x, y) shard files, read with retries."""
+
+    def __init__(self, dirpath: str):
+        xs = sorted(f for f in os.listdir(dirpath) if f.startswith("x_"))
+        self.x_files = [os.path.join(dirpath, f) for f in xs]
+        self.y_files = [
+            os.path.join(dirpath, os.path.basename(p).replace("x_", "y_"))
+            for p in self.x_files]
+        missing = [p for p in self.y_files if not os.path.exists(p)]
+        if missing:
+            raise FileNotFoundError(f"label shards missing: {missing[:3]}")
+        self.lens = [int(read_with_retry(
+            lambda p=p: np.load(p, mmap_mode="r").shape[0], what=p))
+            for p in self.x_files]
+        self.n = sum(self.lens)
+
+    def load(self, i: int):
+        return (read_with_retry(lambda: np.load(self.x_files[i]),
+                                what=self.x_files[i]),
+                read_with_retry(lambda: np.load(self.y_files[i]),
+                                what=self.y_files[i]))
+
+
+class _SyntheticShards:
+    """Deterministic synthetic shards, generated when read: each class's
+    8x8x3 signature (seeded by the class id) tiled to ``store_size``, plus
+    one fp32 noise draw a shard."""
+
+    def __init__(self, n: int, n_classes: int, store_size: int,
+                 shard_size: int, seed: int):
+        self.n = n
+        self.n_classes = n_classes
+        self.store_size = store_size
+        self.shard_size = shard_size
+        self.seed = seed
+        self.n_shards = (n + shard_size - 1) // shard_size
+        self.lens = [min(shard_size, n - i * shard_size)
+                     for i in range(self.n_shards)]
+        self._patterns: dict[int, np.ndarray] = {}
+
+    def _pattern(self, cls: int) -> np.ndarray:
+        p = self._patterns.get(cls)
+        if p is None:
+            r = np.random.RandomState(1000003 + cls)
+            p = r.randint(60, 196, size=(8, 8, 3)).astype(np.float32)
+            self._patterns[cls] = p
+        return p
+
+    def load(self, i: int):
+        s = self.store_size
+        reps = s // 8 + 1
+        count = self.lens[i]
+        r = np.random.default_rng(self.seed * 7919 + int(i))
+        y = r.integers(0, self.n_classes, count, dtype=np.int32)
+        pats = np.stack([self._pattern(int(c)) for c in y])
+        pats = np.tile(pats, (1, reps, reps, 1))[:, :s, :s]
+        noise = r.standard_normal((count, s, s, 3), dtype=np.float32)
+        x = np.clip(pats + noise * 24.0, 0, 255).astype(np.uint8)
+        return x, y
+
+
+class ImageNetData(Dataset):
+    """Sharded ImageNet(-style) data with crop and mirror augmentation.
+
+    Config keys: ``data_path`` (or ``$IMAGENET_PATH``), ``image_size``
+    (the crop, default 224), ``n_classes`` (default 1000; inferred from
+    the labels on disk when not given), and for the synthetic stand-in
+    ``store_size`` (default ``max(image_size + 8, 64)``), ``n_train``,
+    ``n_val`` and ``shard_size``."""
+
+    #: on-device normalization constants: (mean, 1/std) in [0, 255] RGB
+    norm_stats = (MEAN_RGB, (1.0 / STD_RGB).astype(np.float32))
+
+    def __init__(self, config: dict | None = None):
+        config = config or {}
+        self.image_size = config.get("image_size", 224)
+        if int(config.get("loader_workers", 0)) > 0:
+            raise NotImplementedError(
+                "loader_workers > 0: the shared-memory loader pool is not "
+                "ported yet (ROADMAP queue 1 item 6)")
+        path = config.get("data_path") or os.environ.get("IMAGENET_PATH")
+        if path and os.path.isdir(os.path.join(path, "train")):
+            self.synthetic = False
+            self._train = _ShardSet(os.path.join(path, "train"))
+            self._val = _ShardSet(os.path.join(path, "val"))
+            probe = read_with_retry(
+                lambda: np.load(self._train.x_files[0], mmap_mode="r"),
+                what=self._train.x_files[0])
+            self.store_size = int(probe.shape[1])
+            if "n_classes" in config:
+                self.n_classes = config["n_classes"]
+            else:
+                # both splits: a sampled val set may lack the highest id
+                ys = [read_with_retry(lambda p=p: np.load(p), what=p)
+                      for p in (*self._train.y_files, *self._val.y_files)]
+                self.n_classes = int(max(y.max() for y in ys)) + 1
+        else:
+            self.synthetic = True
+            self.store_size = config.get("store_size",
+                                         max(self.image_size + 8, 64))
+            self.n_classes = config.get("n_classes", 1000)
+            shard = config.get("shard_size", 128)
+            self._train = _SyntheticShards(
+                config.get("n_train", 2048), self.n_classes, self.store_size,
+                shard, seed=1)
+            self._val = _SyntheticShards(
+                config.get("n_val", 512), self.n_classes, self.store_size,
+                shard, seed=2)
+        self.n_train = self._train.n
+        self.n_val = self._val.n
+        self.sample_shape = (self.image_size, self.image_size, 3)
+
+    def _augmented_shards(self, src, tagged, train: bool, epoch=0, seed=0):
+        """Per-shard (x, y), augmented for train.  ``tagged`` is ``[(pos,
+        shard index), ...]``; ``pos``, the shard's place in the epoch's
+        order, keys its augmentation (``derive_seed("augment", seed,
+        epoch, pos)``), so any shard is recomputable alone."""
+        for pos, i in tagged:
+            x, y = src.load(int(i))
+            if train:
+                rng = np.random.RandomState(
+                    derive_seed("augment", seed, epoch, int(pos)))
+                x = random_crop_mirror(x, self.image_size, rng)
+                within = rng.permutation(len(x))
+                x, y = x[within], y[within]
+            else:
+                x = center_crop(x, self.image_size)
+            yield x, y
+
+    def _batches(self, src, batch_size, train: bool, epoch=0, seed=0,
+                 start_batch=0):
+        """Shards in shuffled order (train) through a rolling remainder
+        buffer, so batches of exactly ``batch_size`` cross shard
+        boundaries; the ragged tail is dropped.  ``start_batch`` skips the
+        whole shards before sample ``start_batch * batch_size`` unread and
+        trims the first one kept: the stream is the exact tail of an
+        uninterrupted epoch."""
+        n_shards = len(src.lens)
+        if train:
+            order = np.random.RandomState(
+                derive_seed("shards", seed, epoch)).permutation(n_shards)
+        else:
+            order = np.arange(n_shards)
+        tagged = list(enumerate(order))
+        skip = int(start_batch) * batch_size
+        while tagged and skip >= src.lens[int(tagged[0][1])]:
+            skip -= src.lens[int(tagged[0][1])]
+            tagged = tagged[1:]
+        buf_x: list[np.ndarray] = []
+        buf_y: list[np.ndarray] = []
+        have = 0
+        for x, y in self._augmented_shards(src, tagged, train, epoch, seed):
+            if skip:
+                x, y = x[skip:], y[skip:]
+                skip = 0
+            buf_x.append(x)
+            buf_y.append(y)
+            have += len(x)
+            while have >= batch_size:
+                bx = np.concatenate(buf_x) if len(buf_x) > 1 else buf_x[0]
+                by = np.concatenate(buf_y) if len(buf_y) > 1 else buf_y[0]
+                yield {"x": bx[:batch_size], "y": by[:batch_size]}
+                buf_x, buf_y = [bx[batch_size:]], [by[batch_size:]]
+                have -= batch_size
+
+    def train_batches(self, batch_size: int, epoch: int, seed: int = 0,
+                      start_batch: int = 0):
+        return self._batches(self._train, batch_size, train=True,
+                             epoch=epoch, seed=seed, start_batch=start_batch)
+
+    def val_batches(self, batch_size: int):
+        return self._batches(self._val, batch_size, train=False)

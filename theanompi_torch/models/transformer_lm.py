@@ -191,7 +191,8 @@ class TransformerLM(Model):
         return bool(mode)
 
     def init_params(self, gen: torch.Generator):
-        """-> fp32 param tree (the reference's layout) on ``gen``'s device."""
+        """-> (fp32 param tree in the reference's layout on ``gen``'s
+        device, the empty state: the model keeps no running buffers)."""
         shape = (self.config["seq_len"],)
         params = {}
         for name, layer in self.layers:
@@ -199,7 +200,7 @@ class TransformerLM(Model):
             if p:
                 params[name] = p
         params["head"], _ = self.head.init(gen, shape)
-        return params
+        return params, {}
 
     def _head_logits(self, cp, h):
         y = quant.matmul_any(h, cp["head"]["w"])
@@ -281,11 +282,12 @@ class TransformerLM(Model):
         x = self.layers[1][1](cp[self.layers[1][0]], self._embed(cp, tokens))
         return self._run(cp, x, lambda blk, p, h, li: blk(p, h, train, gen))
 
-    def loss_fn(self, params, batch, gen, train: bool):
-        """-> (loss, metrics ``cost/error/error_top5/perplexity``) for one
-        batch ``{"x": [B, T], "y": [B, T]}`` of int64 token ids.  Params
-        are the fp32 masters; autograd through the compute cast hands back
-        fp32 grads."""
+    def loss_fn(self, params, state, batch, gen, train: bool):
+        """-> (loss, (state, metrics ``cost/error/error_top5/perplexity``))
+        for one batch ``{"x": [B, T], "y": [B, T]}`` of int64 token ids;
+        the (empty) state comes back as it was.  Params are the fp32
+        masters; autograd through the compute cast hands back fp32
+        grads."""
         cp = self.precision.cast_to_compute(params)
         h = self.apply_trunk(cp, batch["x"], train=train, gen=gen)
         y = batch["y"]
@@ -303,4 +305,4 @@ class TransformerLM(Model):
         metrics = {"cost": loss.detach(), "error": err1.detach(),
                    "error_top5": err5.detach(),
                    "perplexity": torch.exp(loss.detach())}
-        return loss, metrics
+        return loss, (state, metrics)

@@ -1,9 +1,10 @@
 """Weight initializers on an explicit ``torch.Generator``.
 
-Counterparts of ``theanompi_tpu/ops/initializers.py``'s ``normal`` and
-``glorot_normal``: ``fn(generator, shape, dtype) -> tensor`` on the
-generator's device.  The bits differ from ``jax.random`` by design; tests
-that need the reference's weights convert them (:mod:`theanompi_torch.convert`).
+Counterparts of ``theanompi_tpu/ops/initializers.py``'s ``normal``,
+``he_normal`` and ``glorot_normal``: ``fn(generator, shape, dtype) ->
+tensor`` on the generator's device.  The bits differ from ``jax.random`` by
+design; tests that need the reference's weights convert them
+(:mod:`theanompi_torch.convert`).
 """
 
 from __future__ import annotations
@@ -14,13 +15,18 @@ import torch
 
 
 def _fans(shape):
-    """(fan_in, fan_out) for dense ``[in, out]`` weights."""
+    """(fan_in, fan_out) for dense ``[in, out]`` weights and conv kernels
+    in the port's OIHW layout ``[out, in, *window]``: fan_in = in x
+    window, fan_out = out x window.  (The reference reads HWIO, its
+    layout; reading OIHW with that rule would give the wrong scale.)"""
     if len(shape) < 1:
         return 1, 1
     if len(shape) == 1:
         return shape[0], shape[0]
-    receptive = math.prod(shape[:-2]) if len(shape) > 2 else 1
-    return shape[-2] * receptive, shape[-1] * receptive
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    receptive = math.prod(shape[2:])
+    return shape[1] * receptive, shape[0] * receptive
 
 
 def _randn(gen: torch.Generator, shape, dtype):
@@ -43,6 +49,11 @@ def normal(stddev=0.01, mean=0.0):
         return mean + stddev * _randn(gen, shape, dtype)
 
     return init
+
+
+def he_normal(gen, shape, dtype=torch.float32):
+    fan_in, _ = _fans(shape)
+    return _randn(gen, shape, dtype) * math.sqrt(2.0 / fan_in)
 
 
 def glorot_normal(gen, shape, dtype=torch.float32):

@@ -1,22 +1,47 @@
-"""The layers the transformer slices need: ``Dense``, ``Dropout``,
-``LayerNorm``, ``Embedding``.
+"""The layer library: the transformer's ``Dense``, ``Dropout``,
+``LayerNorm`` and ``Embedding``, and the conv nets' ``Activation``,
+``Conv2D``, ``MaxPool``/``AvgPool``, ``GlobalAvgPool``, ``Flatten``,
+``BatchNorm`` and ``Sequential``.
 
-Counterparts of ``theanompi_tpu/ops/layers.py`` (``Dense``, ``Dropout``
-:284, ``LayerNorm`` :359, ``Embedding`` :412).  Each layer is an ``nn.Module`` that holds its
-configuration; its weights live in a param tree passed to ``forward``
-(the ``torch.func.functional_call`` style), laid out exactly as the
-reference's tree, so a converted checkpoint, the int8 transform and the
-precision policy address the same leaves:
+Counterparts of ``theanompi_tpu/ops/layers.py`` (``Activation`` :78,
+``Dense`` :86, ``Conv2D`` :112, ``_Pool`` :208, ``GlobalAvgPool`` :263,
+``Flatten`` :273, ``Dropout`` :284, ``BatchNorm`` :297, ``LayerNorm``
+:359, ``Embedding`` :412, ``Sequential`` :473).  Each layer is an
+``nn.Module`` that holds its configuration; its weights live in a param
+tree passed to ``forward`` (the ``torch.func.functional_call`` style),
+keyed exactly as the reference's tree, so a converted checkpoint, the int8
+transform and the precision policy address the same leaves:
 
 - ``init(generator, in_shape) -> (params, out_shape)`` — fp32 params on the
   generator's device;
 - ``forward(params, x)`` — computes in ``x.dtype``; the caller's precision
   policy decides the dtype.
+
+Layers that carry state (``BatchNorm``'s running statistics, and the
+containers that hold one) follow the reference's pair instead, which
+:class:`Layer` also gives every stateless layer, so :class:`Sequential`
+drives both kinds through it:
+
+- ``init_stateful(generator, in_shape) -> (params, state, out_shape)``;
+- ``apply_stateful(params, state, x, train=False, gen=None) -> (y,
+  new_state)``.
+
+Layout: activations are NCHW tensors (``torch.channels_last`` in memory
+when they come from an NHWC batch, which is what cuDNN's fastest Hopper
+convolutions take), conv kernels OIHW (``F.conv2d``'s), and per-example
+shapes ``(C, H, W)``.  The reference is NHWC/HWIO;
+:mod:`theanompi_torch.convert` transposes kernels.  ``"SAME"`` padding is
+the reference's (XLA's): at stride 2 the odd pad goes at the end, which
+torch's ``padding="same"`` does not take, so pads are computed here and
+applied with ``F.pad`` where they are not symmetric.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from theanompi_torch.ops import initializers as init_lib
@@ -32,10 +57,31 @@ class Layer(nn.Module):
     def forward(self, params, x):
         return x
 
+    def init_stateful(self, gen: torch.Generator, in_shape):
+        params, out_shape = self.init(gen, in_shape)
+        return params, {}, out_shape
+
+    def apply_stateful(self, params, state, x, train: bool = False,
+                       gen=None):
+        return self(params, x), state
+
     @property
     def name(self) -> str:
         """Tree key stem, the reference's ``type(self).__name__.lower()``."""
         return type(self).__name__.lower()
+
+
+class StatefulLayer(Layer):
+    """Base of the layers that carry state: they run only through
+    ``init_stateful``/``apply_stateful``."""
+
+    def init(self, gen, in_shape):
+        raise TypeError(f"{type(self).__name__} carries state: use "
+                        f"init_stateful")
+
+    def forward(self, params, x):
+        raise TypeError(f"{type(self).__name__} carries state: use "
+                        f"apply_stateful")
 
 
 class Dense(Layer):
@@ -86,6 +132,10 @@ class Dropout(Layer):
         mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
+    def apply_stateful(self, params, state, x, train: bool = False,
+                       gen=None):
+        return self(params, x, train, gen), state
+
 
 class LayerNorm(Layer):
     """Layer norm over the trailing dim: fp32 row statistics (population
@@ -125,3 +175,270 @@ class Embedding(Layer):
 
     def forward(self, params, x):
         return params["w"][x]
+
+
+# -- the conv nets' layers ----------------------------------------------------
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _same_pads(size: int, window: int, stride: int, dilation: int = 1):
+    """XLA's ``"SAME"`` pads of one spatial dim: the output is
+    ``ceil(size / stride)``, the odd pad goes at the end."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + (window - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pads(padding, hw, window, stride, dilation=(1, 1)):
+    """``padding`` (``"SAME"``, ``"VALID"``, an int, or pairs
+    ``((top, bottom), (left, right))``) -> ``((top, bottom), (left,
+    right))``."""
+    if padding == "SAME":
+        return tuple(_same_pads(*a) for a in zip(hw, window, stride,
+                                                 dilation))
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    if isinstance(padding, int):
+        return (padding, padding), (padding, padding)
+    return tuple(tuple(p) for p in padding)
+
+
+def _out_size(size, pads, window, stride, dilation=1):
+    return (size + sum(pads) - (window - 1) * dilation - 1) // stride + 1
+
+
+def _pad(x, pads, value=0.0):
+    """-> (x padded where the pads are not symmetric, the symmetric pads
+    left for the op itself)."""
+    (t, b), (l, r) = pads
+    if t == b and l == r:
+        return x, (t, l)
+    return F.pad(x, (l, r, t, b), value=value), (0, 0)
+
+
+#: the reference's activation table (``jax.nn.gelu`` is the tanh form)
+ACTIVATIONS = {
+    "relu": F.relu,
+    "relu6": F.relu6,
+    "leaky_relu": lambda x: F.leaky_relu(x, 0.2),
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "elu": F.elu,
+    "identity": lambda x: x,
+}
+
+
+class Activation(Layer):
+    def __init__(self, kind: str = "relu"):
+        super().__init__()
+        if kind not in ACTIVATIONS:
+            raise ValueError(f"activation {kind!r} not in "
+                             f"{sorted(ACTIVATIONS)}")
+        self.kind = kind
+
+    def forward(self, params, x):
+        return ACTIVATIONS[self.kind](x)
+
+
+class Conv2D(Layer):
+    """2-D convolution (the reference's ``Conv`` on cuDNN): ``w`` is OIHW
+    ``[filters, C / groups, kh, kw]``, ``b`` ``[filters]``; ``padding`` is
+    ``"SAME"`` (the default), ``"VALID"``, an int or pairs."""
+
+    def __init__(self, filters: int, kernel=3, stride=1, padding="SAME",
+                 dilation=1, groups: int = 1, use_bias: bool = True,
+                 w_init=init_lib.he_normal, b_init=init_lib.zeros):
+        super().__init__()
+        self.filters = filters
+        self.kernel = _pair(kernel)
+        self.stride = _pair(stride)
+        self.padding = padding
+        self.dilation = _pair(dilation)
+        self.groups = groups
+        self.use_bias = use_bias
+        self.w_init = w_init
+        self.b_init = b_init
+
+    def _pads(self, hw):
+        return _pads(self.padding, hw, self.kernel, self.stride,
+                     self.dilation)
+
+    def init(self, gen, in_shape):
+        c, h, w = in_shape
+        params = {"w": self.w_init(gen, (self.filters, c // self.groups,
+                                         *self.kernel))}
+        if self.use_bias:
+            params["b"] = self.b_init(gen, (self.filters,))
+        pads = self._pads((h, w))
+        out = tuple(_out_size(*a) for a in zip(
+            (h, w), pads, self.kernel, self.stride, self.dilation))
+        return params, (self.filters, *out)
+
+    def forward(self, params, x):
+        x, sym = _pad(x, self._pads(x.shape[2:]))
+        return F.conv2d(x, params["w"].to(x.dtype),
+                        params["b"].to(x.dtype) if self.use_bias else None,
+                        self.stride, sym, self.dilation, self.groups)
+
+
+class _Pool(Layer):
+    def __init__(self, window=2, stride=None, padding="VALID"):
+        super().__init__()
+        self.window = _pair(window)
+        self.stride = _pair(stride if stride is not None else window)
+        self.padding = padding
+
+    def _pads(self, hw):
+        return _pads(self.padding, hw, self.window, self.stride)
+
+    def init(self, gen, in_shape):
+        c, h, w = in_shape
+        out = tuple(_out_size(*a) for a in zip(
+            (h, w), self._pads((h, w)), self.window, self.stride))
+        return {}, (c, *out)
+
+
+class MaxPool(_Pool):
+    """Max over windows; padded cells are ``-inf``."""
+
+    def forward(self, params, x):
+        # torch's own (symmetric) padding is -inf too
+        x, sym = _pad(x, self._pads(x.shape[2:]), value=float("-inf"))
+        return F.max_pool2d(x, self.window, self.stride, sym)
+
+
+class AvgPool(_Pool):
+    """Mean over windows: with ``"SAME"`` the sum over the count of
+    unpadded cells (the reference's), otherwise over the window size."""
+
+    def _sum(self, x, pads):
+        x, sym = _pad(x, pads)
+        return F.avg_pool2d(x, self.window, self.stride, sym,
+                            divisor_override=1)
+
+    def forward(self, params, x):
+        pads = self._pads(x.shape[2:])
+        summed = self._sum(x, pads)
+        if self.padding == "SAME":
+            return summed / self._sum(x.new_ones((1, 1, *x.shape[2:])), pads)
+        return summed / float(math.prod(self.window))
+
+
+class GlobalAvgPool(Layer):
+    def init(self, gen, in_shape):
+        return {}, (in_shape[0],)
+
+    def forward(self, params, x):
+        return x.mean(dim=(2, 3))
+
+
+class Flatten(Layer):
+    """``[N, C, H, W] -> [N, H*W*C]`` in the reference's NHWC order, so a
+    converted ``Dense`` after it needs no row permutation."""
+
+    def init(self, gen, in_shape):
+        return {}, (math.prod(in_shape),)
+
+    def forward(self, params, x):
+        if x.ndim == 4:
+            x = x.permute(0, 2, 3, 1)
+        return x.reshape(x.shape[0], -1)
+
+
+class BatchNorm(StatefulLayer):
+    """Batch normalization over the channel dim (dim 1), with the
+    reference's semantics, not ``F.batch_norm``'s (whose running update
+    takes the unbiased variance, weighted by ``1 - momentum`` the other
+    way round):
+
+    - train: the batch mean and ``E[x^2]`` reduced in fp32 (reductions
+      with an fp32 result; no fp32 copy of ``x``), var = max(E[x^2] -
+      mean^2, 0), the biased variance; running stats ``momentum * old +
+      (1 - momentum) * batch``, fp32, carried out of the step detached;
+    - eval: the running stats;
+    - the normalize is ``x * inv + shift`` in ``x``'s dtype, with ``inv``
+      and ``shift`` folded in fp32 from the (compute-dtype) scale and bias.
+
+    ``axis_name`` (the reference's sync-BN over a mesh axis) needs process
+    groups, which are not ported: anything but None raises."""
+
+    def __init__(self, momentum: float = 0.9, eps: float = 1e-5,
+                 axis_name=None, scale_init=init_lib.ones,
+                 bias_init=init_lib.zeros):
+        super().__init__()
+        if axis_name is not None:
+            raise NotImplementedError(
+                f"BatchNorm axis_name={axis_name!r}: sync-BN needs process "
+                f"groups, not yet ported (ROADMAP queue 1 item 2)")
+        self.momentum = momentum
+        self.eps = eps
+        self.scale_init = scale_init
+        self.bias_init = bias_init
+
+    def init_stateful(self, gen, in_shape):
+        c = in_shape[0]
+        params = {"scale": self.scale_init(gen, (c,)),
+                  "bias": self.bias_init(gen, (c,))}
+        state = {"mean": torch.zeros((c,), device=gen.device),
+                 "var": torch.ones((c,), device=gen.device)}
+        return params, state, tuple(in_shape)
+
+    def apply_stateful(self, params, state, x, train: bool = False,
+                       gen=None):
+        dims = [d for d in range(x.ndim) if d != 1]
+        acc = torch.promote_types(x.dtype, torch.float32)  # fp32 or wider
+        if train:
+            n = x.numel() // x.shape[1]
+            mean = x.mean(dim=dims, dtype=acc)
+            # the sum of squares accumulated in acc inside the reduction
+            root = torch.linalg.vector_norm(x, 2, dim=dims, dtype=acc)
+            var = torch.clamp(root * root / n - mean * mean, min=0.0)
+            m = self.momentum
+            new_state = {"mean": m * state["mean"] + (1 - m) * mean.detach(),
+                         "var": m * state["var"] + (1 - m) * var.detach()}
+        else:
+            mean, var = state["mean"], state["var"]
+            new_state = state
+        inv = torch.rsqrt(var + self.eps) * params["scale"].to(acc)
+        shift = params["bias"].to(acc) - mean * inv
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        y = (x * inv.to(x.dtype).reshape(shape)
+             + shift.to(x.dtype).reshape(shape))
+        return y, new_state
+
+
+class Sequential(StatefulLayer):
+    """Composes layers: params and state under the reference's keys
+    ``f"{i:02d}_{layer.name}"`` (layers with none have no key), shapes
+    inferred once; the dropout generator goes to every layer."""
+
+    def __init__(self, layers):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+    def keys(self):
+        return [f"{i:02d}_{layer.name}" for i, layer in
+                enumerate(self.layers)]
+
+    def init_stateful(self, gen, in_shape):
+        params, state, shape = {}, {}, tuple(in_shape)
+        for key, layer in zip(self.keys(), self.layers):
+            p, s, shape = layer.init_stateful(gen, shape)
+            if p:
+                params[key] = p
+            if s:
+                state[key] = s
+        return params, state, shape
+
+    def apply_stateful(self, params, state, x, train: bool = False,
+                       gen=None):
+        new_state = dict(state)
+        for key, layer in zip(self.keys(), self.layers):
+            x, s = layer.apply_stateful(params.get(key, {}),
+                                        state.get(key, {}), x, train, gen)
+            if s:
+                new_state[key] = s
+        return x, new_state

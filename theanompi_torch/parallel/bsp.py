@@ -25,11 +25,14 @@ class BSPTrainer(BaseTrainer):
         self.exchanger = Exchanger(strategy=exch_strategy)
 
     def init_state(self) -> None:
-        """Fresh fp32 params from a CPU generator seeded ``seed + 1`` (the
-        reference's ``PRNGKey(seed + 1)``; the same values whatever the
-        device) and their optimizer state, on the device."""
-        self.params = tree_to(self.model.init_params(
-            torch.Generator().manual_seed(self.seed + 1)), self.device)
+        """Fresh fp32 params and model state from a CPU generator seeded
+        ``seed + 1`` (the reference's ``PRNGKey(seed + 1)``; the same
+        values whatever the device) and the params' optimizer state, on
+        the device."""
+        params, state = self.model.init_params(
+            torch.Generator().manual_seed(self.seed + 1))
+        self.params = tree_to(params, self.device)
+        self.state = tree_to(state, self.device)
         self.opt_state = self.model.init_opt_state(self.optimizer,
                                                    self.params)
 

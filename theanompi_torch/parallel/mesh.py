@@ -57,7 +57,14 @@ class Precision:
         return tree_map(cast, tree)
 
 
-#: Full precision everywhere — CPU tests and numerical parity.
+#: Full precision everywhere — CPU tests and numerical parity.  On the
+#: card, an fp32 convolution is whatever cuDNN runs under
+#: ``torch.backends.cudnn.allow_tf32``, which PyTorch leaves on: TF32
+#: (inputs rounded to 10-bit mantissas, fp32 sums) unless the caller turns
+#: it off; the port's entry points leave the flag as they find it (fp32
+#: matmuls follow ``torch.backends.cuda.matmul.allow_tf32``, off by
+#: default).  ``chip_smoke.py`` turns both off, so its fp32 runs are
+#: IEEE fp32.
 FP32 = Precision(compute_dtype=torch.float32)
 #: The serving default on the card.
 BF16 = Precision()

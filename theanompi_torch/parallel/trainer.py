@@ -3,13 +3,17 @@
 Counterpart of the core of ``theanompi_tpu/parallel/trainer.py``:
 ``make_local_step`` (:76) as :func:`make_train_step` — loss, backward,
 exchange, optimizer update — with ``n_subb`` gradient accumulation
-(``_accumulated_grads``, :229); :class:`BaseTrainer` with ``init_state``,
+(``_accumulated_grads``, :229, the model state threaded through the
+micro-batches in order); :class:`BaseTrainer` with ``init_state``,
 ``train_iter``, ``val_iter``, ``validate``, ``_run_epochs`` and ``run``;
 and :class:`Rule` with ``init``/``wait``.  PyTorch runs eagerly, so there
 is nothing to compile: ``compile_iter_fns`` builds the step closure.
 
 Params are fp32 masters; the model casts to the compute dtype inside
-``loss_fn``, and autograd through that cast returns fp32 grads.  Dropout
+``loss_fn``, and autograd through that cast returns fp32 grads.  The
+trainer holds the model's state (BatchNorm running statistics) beside
+params and optimizer state: each step returns the new one, and
+validation evaluates on it.  Dropout
 draws from a ``torch.Generator`` on the trainer's device seeded with
 ``derive_seed("dropout", seed, step)`` (``..., step, i`` for micro-batch
 ``i``), so masks repeat for the same seed and step and differ across
@@ -66,21 +70,26 @@ def _dropout_gen(device, seed: int, *key):
     return gen
 
 
-def loss_and_grads(model, params, batch, gen):
-    """-> (metrics, grads) of one forward + backward (``train=True``;
-    ``gen`` the dropout generator or None)."""
+def loss_and_grads(model, params, state, batch, gen):
+    """-> (new_state, metrics, grads) of one forward + backward
+    (``train=True``; ``gen`` the dropout generator or None)."""
     leaves = [p.detach().requires_grad_() for p in _leaves(params)]
-    loss, metrics = model.loss_fn(_unflatten(params, leaves), batch, gen,
-                                  train=True)
-    return metrics, _unflatten(params, torch.autograd.grad(loss, leaves))
+    loss, (new_state, metrics) = model.loss_fn(
+        _unflatten(params, leaves), state, batch, gen, train=True)
+    return (new_state, metrics,
+            _unflatten(params, torch.autograd.grad(loss, leaves)))
 
 
-def _accumulated_grads(model, params, batch, seed, step, device, n_subb):
-    """Micro-batched forward + backward: -> (metrics, mean grads).  The
-    batch splits into ``n_subb`` equal micro-batches; activations live
-    for one micro-batch at a time, the grads sum into one params-sized
-    tree.  Float metrics come back averaged; perplexity is re-derived
-    from the averaged cost (a mean of exps would be biased high)."""
+def _accumulated_grads(model, params, state, batch, seed, step, device,
+                       n_subb):
+    """Micro-batched forward + backward: -> (new_state, metrics, mean
+    grads).  The batch splits into ``n_subb`` equal micro-batches;
+    activations live for one micro-batch at a time, the grads sum into one
+    params-sized tree, and the state threads through the micro-batches in
+    order (BatchNorm's statistics are per micro-batch, as in the
+    reference).  Float metrics come back averaged; perplexity is
+    re-derived from the averaged cost (a mean of exps would be biased
+    high)."""
     n = {x.shape[0] for x in batch.values()}
     if any(b % n_subb for b in n):
         raise ValueError(f"n_subb={n_subb} must divide the per-worker batch "
@@ -90,7 +99,7 @@ def _accumulated_grads(model, params, batch, seed, step, device, n_subb):
         mb = {k: x.reshape(n_subb, x.shape[0] // n_subb, *x.shape[1:])[i]
               for k, x in batch.items()}
         gen = _dropout_gen(device, seed, step, i)
-        m, g = loss_and_grads(model, params, mb, gen)
+        state, m, g = loss_and_grads(model, params, state, mb, gen)
         gsum = g if gsum is None else tree_map(torch.add, gsum, g)
         for k, v in m.items():
             msum[k] = v if k not in msum else msum[k] + v
@@ -98,28 +107,31 @@ def _accumulated_grads(model, params, batch, seed, step, device, n_subb):
     metrics = {k: v / n_subb for k, v in msum.items()}
     if {"perplexity", "cost"} <= metrics.keys():
         metrics["perplexity"] = torch.exp(metrics["cost"])
-    return metrics, grads
+    return state, metrics, grads
 
 
 def make_train_step(model, optimizer, exchanger, seed: int, device):
-    """The per-step function: ``step(params, opt_state, batch, lr, step)
-    -> (new_params, new_opt_state, metrics)`` — loss and backward (over
-    ``n_subb`` micro-batches when the model config asks), the exchange,
-    then the optimizer update under ``torch.no_grad``."""
+    """The per-step function: ``step(params, state, opt_state, batch, lr,
+    step) -> (new_params, new_state, new_opt_state, metrics)`` — loss and
+    backward (over ``n_subb`` micro-batches when the model config asks),
+    the exchange, then the optimizer update under ``torch.no_grad``.  At
+    one process the model state needs no exchange (the reference's
+    ``pmean`` of it is the identity there)."""
     n_subb = int(model.config.get("n_subb", 1) or 1)
 
-    def train_step(params, opt_state, batch, lr, step):
+    def train_step(params, state, opt_state, batch, lr, step):
         if n_subb == 1:
             gen = _dropout_gen(device, seed, step)
-            metrics, grads = loss_and_grads(model, params, batch, gen)
+            new_state, metrics, grads = loss_and_grads(model, params, state,
+                                                       batch, gen)
         else:
-            metrics, grads = _accumulated_grads(model, params, batch, seed,
-                                                step, device, n_subb)
+            new_state, metrics, grads = _accumulated_grads(
+                model, params, state, batch, seed, step, device, n_subb)
         grads = exchanger.exchange(grads)
         with torch.no_grad():
             new_params, new_opt_state = optimizer.update(
                 grads, opt_state, params, lr)
-        return new_params, new_opt_state, metrics
+        return new_params, new_state, new_opt_state, metrics
 
     return train_step
 
@@ -140,6 +152,7 @@ class BaseTrainer:
         self.exchanger = None
         self._step_fn = None
         self.params = None
+        self.state = None
         self.opt_state = None
         self.epoch = 0
         self.iteration = 0
@@ -161,8 +174,9 @@ class BaseTrainer:
         batch = to_device(batch, self.device)
         r.end("wait")
         r.start("calc")
-        self.params, self.opt_state, metrics = self._step_fn(
-            self.params, self.opt_state, batch, float(lr), self.iteration)
+        self.params, self.state, self.opt_state, metrics = self._step_fn(
+            self.params, self.state, self.opt_state, batch, float(lr),
+            self.iteration)
         self.iteration += 1
         # fence only at print boundaries: a per-step sync would serialize
         # the host's dispatch with the card
@@ -177,8 +191,8 @@ class BaseTrainer:
     def val_iter(self, batch: dict) -> dict:
         batch = to_device(batch, self.device)
         with torch.no_grad():
-            _, metrics = self.model.loss_fn(self.params, batch, None,
-                                            train=False)
+            _, (_, metrics) = self.model.loss_fn(self.params, self.state,
+                                                 batch, None, train=False)
         return metrics
 
     def validate(self, epoch: int) -> dict:

@@ -211,7 +211,7 @@ def serve(args, on_terminal=None) -> dict:
                 f"--{flag.replace('_', '-')} not yet ported")
     cls = getattr(importlib.import_module(args.modelfile), args.modelclass)
     model = cls(_parse_kv(args.model_set))
-    params = model.init_params(torch.Generator().manual_seed(args.seed))
+    params, _ = model.init_params(torch.Generator().manual_seed(args.seed))
     engine = InferenceEngine(
         model, params, block_size=args.block_size,
         num_blocks=args.num_blocks, max_batch=args.max_batch,
