@@ -88,13 +88,41 @@ Phases (any failure exits non-zero and prints no result line):
    global grad norm, new BN state and updated params must agree within
    the stated tolerance.
 
+6. **Multi-rank BSP**, through ``BSP(...).init(devices=N)`` on every rank
+   of a process group started by ``theanompi_torch.dist.spawn`` (the
+   ranks run ``theanompi_torch.parallel.rank_jobs``).  With two or more
+   cards, min(count, 4) ranks under NCCL, one card each, and every
+   exchange strategy; with one card, two ranks share it over gloo, which
+   carries the all-reduce strategies (``psum``, ``psum_bf16``,
+   ``psum_bucket``, ``psum_bf16_bucket``), ``fused_pmean`` and sync-BN but
+   no send/recv of CUDA tensors, so the ring strategies are not run (the
+   phase says so).  It prints the backend and the rank-to-card map.  The
+   exchange of per-rank ragged trees under each strategy against the
+   ranks' mean (bit-equal on every rank); then the transformer at phase
+   4's config, global batch 16 as N x 16/N, ``psum_bucket``, 4 steps, and
+   ResNet-50 at phase 5's config with sync-BN, global batch 256 as N x
+   256/N (shards of 128, so a rank builds only the shards it trains on),
+   3 steps, each in bf16 and fp32, held against one process at the same
+   global batch from the same init and batches: the step-1 loss, the
+   global norm of the exchanged grads, the params' update after step 1
+   and (ResNet-50) the BN running state after it, within the stated
+   limits; the ranks' losses equal and finite; each flash kernel launched
+   ``8 x 4`` times on every rank (counts zeroed just before the steps and
+   read just after), none by ResNet-50.  Printed: each run's step p50 and
+   the exchange's wire bytes a rank a step; on one card the step time is
+   taken on a card shared by two ranks with the all-reduce staged through
+   the host, not a speed figure.
+
 ``python3 chip_smoke.py --decode`` runs phase 1 and kernels 4 and 5 of
 phase 2 only, and prints no result line; ``--conv`` runs phases 1 and 5
-only, and prints no result line.
+only, and ``--bsp`` phases 1 and 6 only, neither printing a result line.
 
 Output: the ``nvidia-smi`` line, one line per check, the serve reports,
-the training lines, the conv-net lines, then ``{"kernels": [...]}`` and,
-last, ``{"ok": true, "device": {...}}``.  fp32 products run without TF32
+the training lines, the conv-net lines, the multi-rank lines, then
+``{"kernels": [...]}`` (each kernel's ``launches_by_path``: the serving
+runs, the one-process training run and ``train_bsp2_bf16``, the
+multi-rank bf16 transformer run summed over its ranks) and, last,
+``{"ok": true, "device": {...}}``.  fp32 products run without TF32
 throughout.
 """
 
@@ -1363,6 +1391,232 @@ def conv_phase(torch, smi, kernels):
     conv_parity(torch, trained)
 
 
+# -- phase 6: multi-rank BSP ---------------------------------------------------
+
+#: strategies that gloo carries on CUDA tensors (all-reduce; it has no
+#: send/recv of CUDA tensors, which the ring strategies need)
+GLOO_CUDA_STRATEGIES = ("psum", "psum_bf16", "psum_bucket",
+                        "psum_bf16_bucket")
+#: the card's exchange check: per-rank trees of ragged leaves (one of the
+#: LM head's shape), 1 MiB buckets
+BSP_EXCH_SHAPES = {"head/w": (512, 2048), "head/b": (2048,),
+                   "qkv/w": (1000, 37), "ln/scale": (13,)}
+BSP_EXCH_TOL = {"fp32": 1e-6, "bf16": 1e-2, "int8": 5e-2}
+BSP_STEPS = 4
+#: the transformer at phase 4's config, global batch 16
+BSP_TRAIN_CFG = {**TRAIN_CFG, "n_train": BSP_STEPS * TRAIN_CFG["batch_size"],
+                 "n_val": TRAIN_CFG["batch_size"]}
+#: ResNet-50 at phase 5's config, global batch 256, in shards of 128 so a
+#: rank of two builds only its own shard a step
+BSP_CONV_STEPS = 3
+BSP_CONV_CFG = {**CONV_CFG, "shard_size": 128,
+                "n_train": BSP_CONV_STEPS * CONV_CFG["batch_size"],
+                "n_val": CONV_CFG["batch_size"]}
+#: (loss, global grad norm, the params' update[, BN running state])
+#: relative limits of the multi-rank step 1 against the one-process step 1
+#: at the same global batch, same init and batch.  fp32: the two differ in
+#: the grouping of fp32 sums (per-rank partial sums, then the all-reduce),
+#: and, for ResNet-50, in cuDNN's choice of algorithm at batch 128 against
+#: 256.  bf16: phase 4's limits of the kernel path against the plain path:
+#: a product's bf16 rounding depends on the GEMM's shape (batch 8 against
+#: 16, 128 against 256), and the differences grow through the layers
+BSP_TOL = {("transformer", "fp32"): (1e-5, 1e-4, 1e-4),
+           ("transformer", "bf16"): (1e-2, 5e-2, 1e-1),
+           ("resnet50", "fp32"): (1e-5, 1e-4, 1e-3, 1e-4),
+           ("resnet50", "bf16"): (1e-2, 5e-2, 1e-1, 5e-2)}
+
+
+def bsp_layout(torch):
+    """-> (ranks, backend, device, strategies, why): two or more cards
+    take min(count, 4) ranks under NCCL, one card each, and every
+    strategy; one card takes two ranks sharing it over gloo (NCCL refuses
+    two ranks on one card), and the strategies gloo carries on CUDA."""
+    from theanompi_torch.parallel.exchanger import (
+        BUCKETED_STRATEGIES,
+        LEAFWISE_STRATEGIES,
+    )
+
+    count = torch.cuda.device_count()
+    if count >= 2:
+        return (min(count, 4), "nccl", "cuda",
+                LEAFWISE_STRATEGIES + BUCKETED_STRATEGIES, None)
+    return (2, "gloo", "cuda:0", GLOO_CUDA_STRATEGIES,
+            "the ring strategies (ring, ring_bf16, ring_bucket, "
+            "ring_bf16_bucket, ring_int8) were not run on the card: with "
+            "one card the two ranks share it over gloo (NCCL refuses two "
+            "ranks on one card), and gloo has no send/recv of CUDA tensors; "
+            "tests/test_torch_exchanger.py holds them at 4 gloo ranks on "
+            "the CPU")
+
+
+def _saved_vector(torch, saved, key):
+    """``saved[key]``'s leaves as one float64 vector; ``"update"`` is
+    ``params1 - params0``."""
+    from theanompi_torch.tree import tree_leaves_with_path
+
+    def cat(tree):
+        return torch.cat([x.double().flatten()
+                          for _, x in tree_leaves_with_path(tree)])
+
+    if key == "update":
+        return cat(saved["params1"]) - cat(saved["params0"])
+    return cat(saved[key])
+
+
+def bsp_exchange_check(tmp, vals, strategies, result):
+    """The exchange jobs' outputs (written by every rank) against the
+    ranks' mean of ``vals`` (``[n, ...]`` a leaf), per strategy, and every
+    rank's result equal."""
+    import numpy as np
+
+    n = len(next(iter(vals.values())))
+    worst = {}
+    for s in strategies:
+        tol = BSP_EXCH_TOL["int8" if "int8" in s else
+                           "bf16" if "bf16" in s else "fp32"]
+        outs = [np.load(os.path.join(tmp, f"{s}-r{r}.npz"))
+                for r in range(n)]
+        err = 0.0
+        for k, v in vals.items():
+            want = v.mean(0)
+            for r in range(n):
+                got = outs[r][k]
+                check(np.array_equal(got, outs[0][k]), f"bsp exchange {s}: "
+                      f"rank {r} differs from rank 0 on {k}")
+                err = max(err, float(np.max(np.abs(got - want) / (
+                    tol + tol * np.abs(want)))))
+        worst[s] = round(err, 4)
+        check(err <= 1.0, f"bsp exchange {s}: error/limit {err:.3g}")
+    print(f"bsp exchange on the card, {n} ranks, {sum(v[0].size for v in vals.values())}"
+          f" floats a rank, all-reduces issued {result}: worst "
+          f"|err| / (tol (1 + |mean|)) per strategy {worst} (limits fp32 "
+          f"1e-6, bf16 1e-2, int8 5e-2; each rank's result bit-equal)",
+          flush=True)
+
+
+def bsp_phase(torch, smi, kernels):
+    """Phase 6: BSP on ranks of a process group against one process at
+    the same global batch.  -> the transformer's bf16 launches over the
+    ranks (the ``train_bsp2_bf16`` path)."""
+    import gc
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from theanompi_torch import dist as tdist
+    from theanompi_torch.parallel.rank_jobs import bsp_run, run_all
+
+    n, backend, device, strategies, why = bsp_layout(torch)
+    cards = [str(tdist.rank_device(device, r)) for r in range(n)]
+    print(f"bsp: {n} ranks, backend {backend}, rank -> card "
+          f"{dict(enumerate(cards))}", flush=True)
+    if why:
+        print(f"bsp: {why}", flush=True)
+    tmp = tempfile.mkdtemp(prefix="bsp-")
+    rng = np.random.RandomState(7)
+    vals = {k: rng.randn(n, *shape).astype(np.float32)
+            for k, shape in BSP_EXCH_SHAPES.items()}
+    np.savez(os.path.join(tmp, "exch.npz"), **vals)
+    cases = [(s, s, 2**20, 5) for s in strategies]
+    runs, jobs = [], []
+    for model, cfg, steps, mfile, mclass, strategy in (
+            ("transformer", BSP_TRAIN_CFG, BSP_STEPS,
+             "theanompi_torch.models.transformer_lm", "TransformerLM",
+             "psum_bucket"),
+            ("resnet50", BSP_CONV_CFG, BSP_CONV_STEPS,
+             "theanompi_torch.models.resnet50", "ResNet50", "psum_bucket")):
+        for precision in ("bf16", "fp32"):
+            name = f"{model}-{precision}"
+            job = {"modelfile": mfile, "modelclass": mclass,
+                   "model_config": {**cfg, "precision": precision,
+                                    "batch_size": cfg["batch_size"] // n},
+                   "rule_config": {"exch_strategy": strategy, "seed": 0,
+                                   "verbose": False},
+                   "steps": steps, "out": os.path.join(tmp, name),
+                   "save": ["params0", "params1", "state1"],
+                   # the ranks are new processes: IEEE fp32, as here
+                   "allow_tf32": False}
+            runs.append((model, precision, name, job))
+            jobs.append(("bsp_run", (job,)))
+    # the one-process runs at the global batch, first (their memory is
+    # returned to the card before the ranks start)
+    single = {}
+    for model, precision, name, job in runs:
+        cfg = {**job["model_config"],
+               "batch_size": job["model_config"]["batch_size"] * n}
+        single[name] = bsp_run(cards[0], {**job, "model_config": cfg,
+                                          "out": os.path.join(tmp,
+                                                              name + "-one")})
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    per_rank = tdist.spawn(run_all, n, backend, device, (
+        [("exchange_cases", (os.path.join(tmp, "exch.npz"), tmp, cases)),
+         *jobs],), timeout_s=900)
+    print(f"bsp: the ranks' jobs took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    bsp_exchange_check(tmp, vals, strategies, per_rank[0][0])
+    label = ("a card shared by two ranks, all-reduce staged through the "
+             "host (gloo): not a speed figure" if backend == "gloo" else
+             "one card a rank (NCCL)")
+    launches_bf16 = {}
+    for i, (model, precision, name, job) in enumerate(runs):
+        res = [per_rank[r][i + 1] for r in range(n)]
+        one = single[name]
+        mine = torch.load(os.path.join(tmp, f"{name}-r0.pt"))
+        ref = torch.load(os.path.join(tmp, f"{name}-one-r0.pt"))
+        tol = BSP_TOL[model, precision]
+        d = [abs(res[0]["metrics"][0]["cost"] - one["metrics"][0]["cost"])
+             / abs(one["metrics"][0]["cost"]),
+             abs(res[0]["grad_norm"] - one["grad_norm"]) / one["grad_norm"]]
+        for key in ("update", "state1")[:len(tol) - 2]:
+            a, b = (_saved_vector(torch, mine, key),
+                    _saved_vector(torch, ref, key))
+            d.append(float((a - b).norm() / b.norm()))
+        p50 = statistics.median(res[0]["step_s"])
+        p50_one = statistics.median(one["step_s"])
+        launches = [r["launches"] for r in res]
+        print(f"bsp {model}[{precision}] {smi}: {n} x "
+              f"{job['model_config']['batch_size']} against 1 x "
+              f"{one['global_batch']}, {job['rule_config']['exch_strategy']}"
+              f": step-1 loss {res[0]['metrics'][0]['cost']:.7g} / "
+              f"{one['metrics'][0]['cost']:.7g} (rel {d[0]:.3g}, tol "
+              f"{tol[0]:g}); grad norm {res[0]['grad_norm']:.7g} / "
+              f"{one['grad_norm']:.7g} (rel {d[1]:.3g}, tol {tol[1]:g}); "
+              f"update rel {d[2]:.3g} (tol {tol[2]:g})"
+              + (f"; BN state rel {d[3]:.3g} (tol {tol[3]:g})"
+                 if len(tol) > 3 else "")
+              + f"; losses {[m['cost'] for m in res[0]['metrics']]}; "
+              f"step_ms p50 {p50 * 1e3:.3f} on {label} (one process "
+              f"{p50_one * 1e3:.3f}); exchange wire bytes a rank a step "
+              f"{res[0]['wire_bytes']} ({res[0]['all_reduces']} gradient "
+              f"all-reduces); "
+              f"launches per rank {launches}", flush=True)
+        check(all(x <= t for x, t in zip(d, tol)), f"bsp {model}"
+              f"[{precision}]: the {n}-rank step differs from the "
+              f"one-process step")
+        check(all(x == x and abs(x) != float("inf") for r in res
+                  for x in (m["cost"] for m in r["metrics"])),
+              f"bsp {model}[{precision}]: a loss is not finite")
+        check(all(r["metrics"] == res[0]["metrics"] for r in res),
+              f"bsp {model}[{precision}]: the ranks' metrics differ")
+        if model == "transformer":
+            want = 8 * BSP_STEPS
+            for r, got in enumerate(launches):
+                check(all(got[k] == want for k in (
+                    "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+                    f"bsp transformer[{precision}]: rank {r} launched "
+                    f"{got}, expected {want} of each flash kernel")
+            if precision == "bf16":
+                launches_bf16 = {k.name: sum(got[k.name] for got in launches)
+                                 for k in kernels}
+        else:
+            check(not any(v for got in launches for v in got.values()),
+                  f"bsp resnet50[{precision}]: launched {launches}")
+    return launches_bf16
+
+
 def main() -> int:
     import torch
 
@@ -1414,6 +1668,10 @@ def main() -> int:
         # development run: phase 5 only, no result line
         conv_phase(torch, smi, K.KERNELS)
         return 0
+    if "--bsp" in sys.argv[1:]:
+        # development run: phase 6 only, no result line
+        bsp_phase(torch, smi, K.KERNELS)
+        return 0
     if "--decode" in sys.argv[1:]:
         # development run: kernels 4 and 5 only, no result line
         checks = {"paged_decode": check_paged(torch),
@@ -1459,6 +1717,8 @@ def main() -> int:
                                 "flash_bwd_dkv")), flush=True)
     # -- phase 5 -----------------------------------------------------------
     conv_phase(torch, smi, K.KERNELS)
+    # -- phase 6 -----------------------------------------------------------
+    bsp_launches = bsp_phase(torch, smi, K.KERNELS)
 
     # the serving slice's kernels report their serve run; the flash
     # kernels the training run, which launches all three
@@ -1466,7 +1726,8 @@ def main() -> int:
         main_launches[k] = train_launches[k]
     by_path = {k.name: {"serve_bf16": runs[("bf16", False)][0][k.name],
                         "serve_bf16_int8": runs[("bf16", True)][0][k.name],
-                        "train_bf16": train_launches[k.name]}
+                        "train_bf16": train_launches[k.name],
+                        "train_bsp2_bf16": bsp_launches[k.name]}
                for k in K.KERNELS}
 
     # one representative main-path shape per kernel for the summary line

@@ -174,8 +174,13 @@ def test_batchnorm_train_and_eval_match_reference():
             np.testing.assert_allclose(s[k].numpy(), np.asarray(s_ref[k]),
                                        rtol=RTOL, atol=ATOL, err_msg=k)
             assert not s[k].requires_grad
-    with pytest.raises(NotImplementedError, match="sync-BN"):
-        L.BatchNorm(axis_name="data")
+    # sync-BN at one process: the mean over a group of one, bit for bit
+    sync = L.BatchNorm(axis_name="data")
+    y, s = mine.apply_stateful(_t(params), _t(state), _nchw(x), True)
+    ys, ss = sync.apply_stateful(_t(params), _t(state), _nchw(x), True)
+    assert torch.equal(y, ys) and all(torch.equal(s[k], ss[k]) for k in s)
+    with pytest.raises(ValueError, match="one axis"):
+        L.BatchNorm(axis_name="model")
     with pytest.raises(TypeError, match="carries state"):
         mine(_t(params), _nchw(x))
 

@@ -253,8 +253,10 @@ def test_full_depth_param_count_and_refusals():
     assert len(tree_leaves_with_path(state)) == 2 * 53  # 53 BNs
     with pytest.raises(NotImplementedError, match="save_convs"):
         ResNet50({**RESNET, "remat": "save_convs"})
-    with pytest.raises(NotImplementedError, match="sync-BN"):
-        WideResNet({**WRN, "bn_axis": "data"})
+    # sync-BN over the process group ("data") builds; another axis raises
+    WideResNet({**WRN, "bn_axis": "data"})
+    with pytest.raises(ValueError, match="one axis"):
+        WideResNet({**WRN, "bn_axis": "model"})
 
 
 @pytest.mark.parametrize("name", ["resnet50-s2d-live", "wrn"])

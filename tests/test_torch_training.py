@@ -12,8 +12,8 @@ after one SGD step and the loss after three steps, for
 
 Also: ``n_subb=2`` equals the full batch; ``BSP().init(...)`` on
 ``device="cpu"`` trains 2 epochs through ``.wait()`` and validates below
-its first train loss; the default configs agree; unported rule keys and
-worker counts raise.
+its first train loss; the default configs agree; unported rule keys
+(``zero1``, the exchange's overlap and ramp among them) raise.
 
 Tolerance: rtol 1e-5 / atol 1e-6 in fp32 unless a reason is written.
 """
@@ -182,11 +182,11 @@ def test_rule_refuses_what_it_does_not_carry():
         assert key in NOT_PORTED_KEYS
         with pytest.raises(NotImplementedError, match="not yet ported"):
             BSP({key: "x"}).init(devices=1, model_config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        BSP().init(devices=2, model_config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        BSP({"exch_strategy": "ring_int8"}).init(
-            devices=1, model_config=cfg, device="cpu")
+    # the exchange's sharded update, overlap and ramp: ROADMAP item 10
+    for rule_cfg in ({"exch_strategy": "zero1"}, {"exch_overlap": True},
+                     {"exch_ramp": "ring_int8:1,psum:2"}):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            BSP(rule_cfg).init(devices=1, model_config=cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="stream"):
         TransformerLM({**cfg, "dataset": "stream"}).data
 

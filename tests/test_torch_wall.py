@@ -3,8 +3,10 @@ default.
 
 - a fresh interpreter imports the port's serving and training stacks
   (the BSP rule, the launcher, the losses, the conv nets and their data
-  planes) and ``chip_smoke.py`` (as a module) without ``jax`` or
-  ``theanompi_tpu`` ever entering ``sys.modules``;
+  planes, the process groups and the ranks' jobs) and ``chip_smoke.py``
+  (as a module) without ``jax`` or ``theanompi_tpu`` ever entering
+  ``sys.modules`` (the spawned ranks' own modules are checked by
+  ``test_torch_exchanger.py`` and ``test_torch_bsp_multirank.py``);
 - no file of ``theanompi_torch/`` (nor ``chip_smoke.py``) imports either;
 - entry points called without ``device`` on a machine with no CUDA raise
   instead of running on the CPU (the launcher exits non-zero), and the
@@ -48,6 +50,7 @@ def test_import_wall_in_a_fresh_interpreter():
         "import theanompi_torch.models.wide_resnet\n"
         "import theanompi_torch.models.data.imagenet\n"
         "import theanompi_torch.models.data.cifar10\n"
+        "import theanompi_torch.dist, theanompi_torch.parallel.rank_jobs\n"
         "from theanompi_torch import BSP\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -117,7 +120,7 @@ def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--checkpoint-dir", "ck"], ["--telemetry-dir", "tel"], ["--resume"],
-    ["--supervise"], ["--devices", "2"], ["--rule", "EASGD"],
+    ["--supervise"], ["--record-dir", "rec"], ["--rule", "EASGD"],
     ["--config-json", "c.json"], ["--sentinel", "abort"]])
 def test_launcher_unported_flags_exit_78(flags, capsys):
     from theanompi_torch.launcher import main as launch

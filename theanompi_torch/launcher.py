@@ -1,20 +1,27 @@
 """``python -m theanompi_torch.launcher``: the port's ``tmlauncher``.
 
-Counterpart of ``theanompi_tpu/launcher.py`` for one process on one card:
-the reference's flag names for what this slice carries — ``--rule BSP``,
-``--modelfile``, ``--modelclass``, ``--set K=V`` (model config),
-``--rule-set K=V`` (rule config), ``--seed``, ``--quiet`` — plus
-``--device`` (the card by default; ``cpu`` only when asked).  The
-reference's other flags (multi-device, checkpoints, telemetry,
-supervision, ...) are accepted by the parser and refused with exit 78
-``tmlauncher: error: config: --flag not yet ported``; so are the rules
-other than BSP.
+Counterpart of ``theanompi_tpu/launcher.py``: the reference's flag names
+for what the port carries — ``--rule BSP``, ``--modelfile``,
+``--modelclass``, ``--set K=V`` (model config), ``--rule-set K=V`` (rule
+config), ``--seed``, ``--quiet``, ``--devices N|all`` — plus ``--device``
+(the card by default; ``cpu`` only when asked).  The reference's other
+flags (checkpoints, telemetry, supervision, ...) are accepted by the
+parser and refused with exit 78 ``tmlauncher: error: config: --flag not
+yet ported``; so are the rules other than BSP.
+
+``--devices N`` (the reference's worker count, :137 and :409) starts N
+local ranks through :func:`theanompi_torch.dist.spawn`, one process
+each: on the cards one card a rank under NCCL, on ``--device cpu`` gloo
+ranks on the host.  ``all`` is every visible card (1 on the CPU).  Rank
+0's exit code and final validation line are the run's.  Started by
+``torchrun`` instead (``WORLD_SIZE`` set), each process joins the group
+as one rank.
 
 Exit codes (the reference's contract): 0 clean, 70 crash (environment or
 training), 78 config error, each with one ``tmlauncher: error:`` line on
 stderr (``THEANOMPI_DEBUG=1`` adds the traceback).
 
-Example (one H100)::
+Example (one H100; ``--devices 4`` on a host with four)::
 
     python -m theanompi_torch.launcher \\
         --modelfile theanompi_torch.models.transformer_lm \\
@@ -35,7 +42,7 @@ EXIT_CONFIG = 78
 
 #: reference flags whose machinery comes with later slices: (flag, dest)
 NOT_PORTED = (
-    ("--devices", "devices"), ("--config-json", "config_json"),
+    ("--config-json", "config_json"),
     ("--record-dir", "record_dir"), ("--telemetry-dir", "telemetry_dir"),
     ("--checkpoint-dir", "checkpoint_dir"),
     ("--compile-cache-dir", "compile_cache_dir"), ("--resume", "resume"),
@@ -92,6 +99,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; no CUDA is an "
                    "error unless 'cpu' is asked for)")
+    p.add_argument("--devices", default="1", metavar="N|all",
+                   help="worker count: N local ranks, one card each "
+                   "(NCCL), or gloo ranks with --device cpu; 'all' is "
+                   "every visible card (1 on the CPU)")
     for flag, dest in NOT_PORTED:
         if flag in _FLAGS:
             p.add_argument(flag, dest=dest, action="store_true",
@@ -127,39 +138,108 @@ def build_configs(args) -> tuple[dict, dict]:
     return model_config, rule_config
 
 
+def worker_count(args, on_cpu: bool) -> int:
+    """``--devices`` as a number of ranks; raises :class:`ConfigError`
+    where the run cannot have that many."""
+    import torch
+
+    if args.devices == "all":
+        n = 1 if on_cpu else torch.cuda.device_count()
+        if n == 0:
+            raise ConfigError("--devices all: no CUDA device visible")
+        return n
+    try:
+        n = int(args.devices)
+    except ValueError:
+        raise ConfigError(f"--devices {args.devices!r}: a count or 'all'")
+    if n < 1:
+        raise ConfigError(f"--devices {n}: at least 1")
+    if n > 1 and not on_cpu:
+        if args.device is not None and torch.device(args.device).index \
+                is not None:
+            raise ConfigError(f"--devices {n} on one card "
+                              f"({args.device}): NCCL takes one rank a card")
+        if n > torch.cuda.device_count():
+            raise ConfigError(f"--devices {n}: "
+                              f"{torch.cuda.device_count()} card(s) visible")
+    return n
+
+
+def run_rank(device, job: dict) -> tuple[int, dict | None]:
+    """One rank of a launcher run (every rank calls it): -> (exit code,
+    final validation metrics, rank 0's; None elsewhere or on failure).
+    An init failure on any rank ends every rank with the worst code; a
+    training failure raises (the spawner ends the other ranks)."""
+    import torch
+    import torch.distributed as dist
+
+    from theanompi_torch import dist as tdist
+    from theanompi_torch.parallel.bsp import BSP
+
+    code, rule = 0, BSP(config=job["rule_config"])
+    try:
+        rule.init(devices=tdist.world(), modelfile=job["modelfile"],
+                  modelclass=job["modelclass"],
+                  model_config=job["model_config"], device=device)
+    except _CONFIG_ERRORS as e:
+        code = EXIT_CONFIG
+        _error_line("init", e)
+    except Exception as e:  # the launcher's boundary: report, exit 70
+        code = EXIT_CRASH
+        _error_line("init", e)
+    if tdist.world() > 1:
+        worst = torch.tensor([code], device=device)
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+        code = int(worst.item())
+    if code:
+        return code, None
+    recorder = rule.wait()
+    if tdist.rank() != 0:
+        return 0, None
+    return 0, {k: v[-1] for k, v in recorder.val_history.items() if v}
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    import torch
+
+    from theanompi_torch import dist as tdist
+
+    on_cpu = args.device is not None and torch.device(args.device).type \
+        == "cpu"
     try:
         model_config, rule_config = build_configs(args)
+        n = worker_count(args, on_cpu)
     except ConfigError as e:
         print(f"tmlauncher: error: config: {e}", file=sys.stderr, flush=True)
         return EXIT_CONFIG
-
-    from theanompi_torch.parallel.bsp import BSP
+    job = {"model_config": model_config, "rule_config": rule_config,
+           "modelfile": args.modelfile, "modelclass": args.modelclass}
+    backend = "gloo" if on_cpu else "nccl"
 
     try:
-        rule = BSP(config=rule_config)
-        rule.init(devices=1, modelfile=args.modelfile,
-                  modelclass=args.modelclass, model_config=model_config,
-                  device=args.device)
-    except _CONFIG_ERRORS as e:
-        _error_line("init", e)
-        return EXIT_CONFIG
-    except Exception as e:  # the launcher's boundary: report, exit 70
-        _error_line("init", e)
-        return EXIT_CRASH
-    try:
-        recorder = rule.wait()
+        if n > 1:
+            code, val = tdist.spawn(run_rank, n, backend,
+                                    args.device or "cuda", (job,))[0]
+        elif int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            # started by torchrun: this process is one rank
+            tdist.init(backend)
+            try:
+                code, val = run_rank(tdist.rank_device(
+                    args.device or "cuda", tdist.local_rank()), job)
+            finally:
+                tdist.teardown()
+        else:
+            code, val = run_rank(args.device, job)
     except KeyboardInterrupt:
         raise  # a human's ^C is not a crash to classify
     except Exception as e:
         _error_line("training", e)
         return EXIT_CRASH
-    if not args.quiet:
-        last = {k: v[-1] for k, v in recorder.val_history.items() if v}
-        print(f"tmlauncher: done. final val: {last}", flush=True)
-    return 0
+    if code == 0 and val is not None and not args.quiet:
+        print(f"tmlauncher: done. final val: {val}", flush=True)
+    return code
 
 
 if __name__ == "__main__":

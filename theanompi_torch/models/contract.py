@@ -96,9 +96,10 @@ class SupervisedModel(Model):
 
     Subclasses implement ``build_net() -> (net, in_shape)``, the net a
     stateful layer (``init_stateful``/``apply_stateful``) and ``in_shape``
-    one example's ``(C, H, W)``.  Batches are ``{"x": [B, H, W, C], "y":
-    [B] int}``, NHWC as the data planes yield them; :meth:`prepare_x`
-    turns ``x`` into the compute dtype and the NCHW view the layers take.
+    one example's ``(C, H, W)``.  Image batches are ``{"x": [B, H, W, C],
+    "y": [B] int}``, NHWC as the data planes yield them; :meth:`prepare_x`
+    turns ``x`` into the compute dtype and the NCHW view the layers take
+    (token batches, integer ``x``, pass as they are).
     Auxiliary heads (GoogLeNet's) come with those models."""
 
     def __init__(self, config=None):
@@ -117,20 +118,27 @@ class SupervisedModel(Model):
         return self.net.apply_stateful(params, state, x, train, gen)
 
     def prepare_x(self, x):
-        """A batch's ``x`` on the device -> the compute dtype, NCHW.
-        uint8 images (they cross to the card as bytes, 4x fewer than fp32)
-        are cast here and normalized with the dataset's ``norm_stats``
-        (mean, 1/std), both in the compute dtype; the permute of an NHWC
-        batch is a view, in ``channels_last`` memory, the layout cuDNN's
-        NHWC convolutions read."""
-        stats = (getattr(self.data, "norm_stats", None)
-                 if x.dtype == torch.uint8 else None)
-        x = x.to(self.precision.compute_dtype)
-        if stats is not None:
-            mean, inv_std = (torch.as_tensor(s, dtype=x.dtype,
-                                             device=x.device) for s in stats)
-            x = (x - mean) * inv_std
-        return x.permute(0, 3, 1, 2)
+        """A batch's ``x`` on the device, as the reference's
+        ``prepare_x``: uint8 images (they cross to the card as bytes, 4x
+        fewer than fp32) are cast to the compute dtype and normalized with
+        the dataset's ``norm_stats`` (mean, 1/std) in it; other floating
+        ``x`` is cast; integer ``x`` (tokens) stays as it is.  A 4-D
+        (NHWC) image batch is then permuted to NCHW, a view in
+        ``channels_last`` memory, the layout cuDNN's NHWC convolutions
+        read."""
+        if x.dtype == torch.uint8:
+            stats = getattr(self.data, "norm_stats", None)
+            x = x.to(self.precision.compute_dtype)
+            if stats is not None:
+                mean, inv_std = (torch.as_tensor(s, dtype=x.dtype,
+                                                 device=x.device)
+                                 for s in stats)
+                x = (x - mean) * inv_std
+        elif x.is_floating_point():
+            x = x.to(self.precision.compute_dtype)
+        if x.ndim == 4 and x.is_floating_point():
+            x = x.permute(0, 3, 1, 2)
+        return x
 
     def loss_fn(self, params, state, batch, gen, train: bool):
         """-> (loss, (new_state, metrics ``cost/error/error_top5``)); the

@@ -54,13 +54,21 @@ def read_with_retry(fn, what: str, retries: int = 4,
         f"could not read {what} after {retries} attempts: {last}") from last
 
 
+def row_slice(rows) -> slice:
+    """``rows`` (a ``(lo, hi)`` pair, or None for all) as a slice."""
+    return slice(None) if rows is None else slice(*rows)
+
+
 class Dataset:
     """Duck-typed dataset: ``n_train``/``n_val`` counts and batch
     iterators.  ``train_batches(batch_size, epoch, seed, start_batch)``
     must give, from cursor ``start_batch`` on, exactly the batches an
     uninterrupted epoch would (randomness keyed on ``derive_seed(...,
-    epoch)``).  ``state``/``set_state`` carry any position the (epoch,
-    cursor) pair does not determine; the datasets here have none."""
+    epoch)``).  ``rows=(lo, hi)`` (both iterators) gives rows ``lo:hi`` of
+    each of those batches, the share of one data-parallel rank; a dataset
+    builds only what those rows need where its randomness allows.
+    ``state``/``set_state`` carry any position the (epoch, cursor) pair
+    does not determine; the datasets here have none."""
 
     n_train: int
     n_val: int
@@ -74,10 +82,10 @@ class Dataset:
         return self.n_val // batch_size
 
     def train_batches(self, batch_size: int, epoch: int, seed: int = 0,
-                      start_batch: int = 0):
+                      start_batch: int = 0, rows=None):
         raise NotImplementedError
 
-    def val_batches(self, batch_size: int):
+    def val_batches(self, batch_size: int, rows=None):
         raise NotImplementedError
 
     def state(self) -> dict:
@@ -109,23 +117,31 @@ class ArrayDataset(Dataset):
         rng = np.random.RandomState(derive_seed("shuffle", seed, epoch))
         return rng.permutation(self.n_train)
 
-    def train_batches(self, batch_size, epoch, seed=0, start_batch=0):
+    def train_batches(self, batch_size, epoch, seed=0, start_batch=0,
+                      rows=None):
         order = self.epoch_order(epoch, seed)
+        sl = row_slice(rows)
         for i in range(int(start_batch), self.n_train_batches(batch_size)):
             idx = order[i * batch_size: (i + 1) * batch_size]
-            x = self.x_train[idx]
-            if self.augment_fn is not None:
+            if self.augment_fn is None:
+                idx = idx[sl]
+                x = self.x_train[idx]
+            else:
                 # keyed on the batch, not drawn from the permutation's
-                # stream: batch i is recomputable alone
+                # stream: batch i is recomputable alone.  The draws cover
+                # the whole batch, so it is augmented whole
                 rng = np.random.RandomState(
                     derive_seed("augment", seed, epoch, i))
-                x = self.augment_fn(x, rng)
+                x = self.augment_fn(self.x_train[idx], rng)[sl]
+                idx = idx[sl]
             yield {"x": x, "y": self.y_train[idx]}
 
-    def val_batches(self, batch_size):
+    def val_batches(self, batch_size, rows=None):
+        sl = row_slice(rows)
         for i in range(self.n_val_batches(batch_size)):
-            sl = slice(i * batch_size, (i + 1) * batch_size)
-            yield {"x": self.x_val[sl], "y": self.y_val[sl]}
+            b = self.x_val[i * batch_size: (i + 1) * batch_size]
+            c = self.y_val[i * batch_size: (i + 1) * batch_size]
+            yield {"x": b[sl], "y": c[sl]}
 
 
 def _class_structured(n, shape, n_classes, seed, noise=0.3, means_seed=0):
@@ -203,14 +219,24 @@ class SyntheticSequenceDataset(Dataset):
         self._val = gen(n_val, np.random.RandomState(seed + 2))
         self.n_train, self.n_val = n_train, n_val
 
-    def train_batches(self, batch_size, epoch, seed=0, start_batch=0):
-        rng = np.random.RandomState(derive_seed("shuffle", seed, epoch))
-        order = rng.permutation(self.n_train)
-        for i in range(int(start_batch), self.n_train // batch_size):
-            s = self._train[order[i * batch_size: (i + 1) * batch_size]]
-            yield {"x": s[:, :-1], "y": s[:, 1:]}
+    def train_batches(self, batch_size, epoch, seed=0, start_batch=0,
+                      rows=None):
+        return sequence_batches(self._train, self.n_train, batch_size,
+                                epoch, seed, start_batch, rows)
 
-    def val_batches(self, batch_size):
-        for i in range(self.n_val // batch_size):
-            s = self._val[i * batch_size: (i + 1) * batch_size]
-            yield {"x": s[:, :-1], "y": s[:, 1:]}
+    def val_batches(self, batch_size, rows=None):
+        return sequence_batches(self._val, self.n_val, batch_size,
+                                rows=rows)
+
+
+def sequence_batches(seqs, n, batch_size, epoch=None, seed=0, start_batch=0,
+                     rows=None):
+    """Next-token batches ``{"x": s[:, :-1], "y": s[:, 1:]}`` of the
+    ``[n, T + 1]`` sequences: shuffled per (seed, epoch) when ``epoch`` is
+    given (training), in order otherwise; rows ``rows`` of each."""
+    order = (np.random.RandomState(derive_seed("shuffle", seed, epoch))
+             .permutation(n) if epoch is not None else np.arange(n))
+    sl = row_slice(rows)
+    for i in range(int(start_batch), n // batch_size):
+        s = seqs[order[i * batch_size: (i + 1) * batch_size][sl]]
+        yield {"x": s[:, :-1], "y": s[:, 1:]}

@@ -207,45 +207,54 @@ class ImageNetData(Dataset):
             yield x, y
 
     def _batches(self, src, batch_size, train: bool, epoch=0, seed=0,
-                 start_batch=0):
+                 start_batch=0, rows=None):
         """Shards in shuffled order (train) through a rolling remainder
         buffer, so batches of exactly ``batch_size`` cross shard
-        boundaries; the ragged tail is dropped.  ``start_batch`` skips the
-        whole shards before sample ``start_batch * batch_size`` unread and
-        trims the first one kept: the stream is the exact tail of an
-        uninterrupted epoch."""
+        boundaries; the ragged tail is dropped.  ``start_batch`` starts
+        the stream at sample ``start_batch * batch_size``: the exact tail
+        of an uninterrupted epoch.  ``rows=(lo, hi)`` keeps rows ``lo:hi``
+        of each batch.  A shard none of whose samples is kept is never
+        read (nor generated, nor augmented)."""
         n_shards = len(src.lens)
         if train:
             order = np.random.RandomState(
                 derive_seed("shards", seed, epoch)).permutation(n_shards)
         else:
             order = np.arange(n_shards)
-        tagged = list(enumerate(order))
-        skip = int(start_batch) * batch_size
-        while tagged and skip >= src.lens[int(tagged[0][1])]:
-            skip -= src.lens[int(tagged[0][1])]
-            tagged = tagged[1:]
+        lo, hi = (0, batch_size) if rows is None else rows
+        first = int(start_batch) * batch_size
+        end = src.n // batch_size * batch_size
+        needed, masks, pos = [], [], 0
+        for tag in enumerate(order):
+            p = pos + np.arange(src.lens[int(tag[1])])
+            pos += len(p)
+            keep = (p >= first) & (p < end) & (p % batch_size >= lo) & (
+                p % batch_size < hi)
+            if keep.any():
+                needed.append(tag)
+                masks.append(keep)
         buf_x: list[np.ndarray] = []
         buf_y: list[np.ndarray] = []
-        have = 0
-        for x, y in self._augmented_shards(src, tagged, train, epoch, seed):
-            if skip:
-                x, y = x[skip:], y[skip:]
-                skip = 0
+        have, width = 0, hi - lo
+        for keep, (x, y) in zip(masks, self._augmented_shards(
+                src, needed, train, epoch, seed)):
+            if not keep.all():
+                x, y = x[keep], y[keep]
             buf_x.append(x)
             buf_y.append(y)
             have += len(x)
-            while have >= batch_size:
+            while have >= width:
                 bx = np.concatenate(buf_x) if len(buf_x) > 1 else buf_x[0]
                 by = np.concatenate(buf_y) if len(buf_y) > 1 else buf_y[0]
-                yield {"x": bx[:batch_size], "y": by[:batch_size]}
-                buf_x, buf_y = [bx[batch_size:]], [by[batch_size:]]
-                have -= batch_size
+                yield {"x": bx[:width], "y": by[:width]}
+                buf_x, buf_y = [bx[width:]], [by[width:]]
+                have -= width
 
     def train_batches(self, batch_size: int, epoch: int, seed: int = 0,
-                      start_batch: int = 0):
+                      start_batch: int = 0, rows=None):
         return self._batches(self._train, batch_size, train=True,
-                             epoch=epoch, seed=seed, start_batch=start_batch)
+                             epoch=epoch, seed=seed, start_batch=start_batch,
+                             rows=rows)
 
-    def val_batches(self, batch_size: int):
-        return self._batches(self._val, batch_size, train=False)
+    def val_batches(self, batch_size: int, rows=None):
+        return self._batches(self._val, batch_size, train=False, rows=rows)

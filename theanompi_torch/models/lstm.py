@@ -18,7 +18,7 @@ import numpy as np
 from theanompi_torch.models.data.base import (
     Dataset,
     SyntheticSequenceDataset,
-    derive_seed,
+    sequence_batches,
 )
 
 
@@ -76,14 +76,10 @@ class PTBData(Dataset):
         return ids[: n * t].reshape(n, t)
 
     def train_batches(self, batch_size: int, epoch: int, seed: int = 0,
-                      start_batch: int = 0):
-        rng = np.random.RandomState(derive_seed("shuffle", seed, epoch))
-        order = rng.permutation(self.n_train)
-        for i in range(int(start_batch), self.n_train // batch_size):
-            s = self._train_seqs[order[i * batch_size: (i + 1) * batch_size]]
-            yield {"x": s[:, :-1], "y": s[:, 1:]}
+                      start_batch: int = 0, rows=None):
+        return sequence_batches(self._train_seqs, self.n_train, batch_size,
+                                epoch, seed, start_batch, rows)
 
-    def val_batches(self, batch_size: int):
-        for i in range(self.n_val // batch_size):
-            s = self._val_seqs[i * batch_size: (i + 1) * batch_size]
-            yield {"x": s[:, :-1], "y": s[:, 1:]}
+    def val_batches(self, batch_size: int, rows=None):
+        return sequence_batches(self._val_seqs, self.n_val, batch_size,
+                                rows=rows)

@@ -44,6 +44,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from theanompi_torch import dist as tdist
+from theanompi_torch.dist import DATA_AXIS
 from theanompi_torch.ops import initializers as init_lib
 from theanompi_torch.ops import quant
 
@@ -362,17 +364,22 @@ class BatchNorm(StatefulLayer):
     - the normalize is ``x * inv + shift`` in ``x``'s dtype, with ``inv``
       and ``shift`` folded in fp32 from the (compute-dtype) scale and bias.
 
-    ``axis_name`` (the reference's sync-BN over a mesh axis) needs process
-    groups, which are not ported: anything but None raises."""
+    ``axis_name`` is the reference's sync-BN: ``"data"`` averages the
+    batch mean and ``E[x^2]`` over the process group (every rank of the
+    data-parallel run) before the variance, the running update and the
+    normalize, through an all-reduce that autograd runs through (its
+    backward sums the cotangents over the group, as the transpose of the
+    reference's ``pmean`` does); at a world of 1 it changes nothing."""
 
     def __init__(self, momentum: float = 0.9, eps: float = 1e-5,
                  axis_name=None, scale_init=init_lib.ones,
                  bias_init=init_lib.zeros):
         super().__init__()
-        if axis_name is not None:
-            raise NotImplementedError(
-                f"BatchNorm axis_name={axis_name!r}: sync-BN needs process "
-                f"groups, not yet ported (ROADMAP queue 1 item 2)")
+        if axis_name not in (None, DATA_AXIS):
+            raise ValueError(
+                f"BatchNorm axis_name={axis_name!r}: the port's one axis is "
+                f"{DATA_AXIS!r}, the process group")
+        self.axis_name = axis_name
         self.momentum = momentum
         self.eps = eps
         self.scale_init = scale_init
@@ -395,7 +402,11 @@ class BatchNorm(StatefulLayer):
             mean = x.mean(dim=dims, dtype=acc)
             # the sum of squares accumulated in acc inside the reduction
             root = torch.linalg.vector_norm(x, 2, dim=dims, dtype=acc)
-            var = torch.clamp(root * root / n - mean * mean, min=0.0)
+            mean_sq = root * root / n
+            if self.axis_name is not None and tdist.world() > 1:
+                stats = tdist.all_reduce_sum(torch.stack([mean, mean_sq]))
+                mean, mean_sq = stats / tdist.world()
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             m = self.momentum
             new_state = {"mean": m * state["mean"] + (1 - m) * mean.detach(),
                          "var": m * state["var"] + (1 - m) * var.detach()}

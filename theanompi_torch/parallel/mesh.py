@@ -1,13 +1,14 @@
 """Precision policy and the device rule.
 
 Counterpart of ``theanompi_tpu/parallel/mesh.py``'s ``Precision``/``FP32``/
-``BF16``.  The port runs one process per GPU, so there is no mesh here
-yet: process groups arrive with the training slice.
+``BF16``.  The port runs one process per GPU; the mesh's ``data`` axis is
+the process group of :mod:`theanompi_torch.dist`.
 
 The device rule every entry point follows: ``device=None`` means the
-card (``cuda``); with no CUDA available it raises rather than quietly
-running on the CPU.  Only an explicit ``device="cpu"`` (what the tests
-pass) runs on the host.
+card (``cuda``; a rank of a process group takes its own,
+``cuda:<local rank>``); with no CUDA available it raises rather than
+quietly running on the CPU.  Only an explicit ``device="cpu"`` (what the
+tests pass) runs on the host.
 """
 
 from __future__ import annotations
@@ -16,23 +17,28 @@ import dataclasses
 
 import torch
 
+from theanompi_torch import dist as tdist
 from theanompi_torch.tree import tree_map
 
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``None`` -> ``cuda`` (raises
     ``RuntimeError`` when CUDA is unavailable); anything else as given,
-    with a CUDA request also checked."""
+    with a CUDA request also checked.  In a process group of more than
+    one rank, ``None`` and ``"cuda"`` name the rank's own card,
+    ``cuda:<local rank>``."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: theanompi_torch runs on the card unless "
                 "the caller asks for device='cpu'")
-        return torch.device("cuda")
+        device = "cuda"
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is "
                            f"unavailable")
+    if dev.type == "cuda" and dev.index is None and tdist.world() > 1:
+        return torch.device("cuda", tdist.local_rank())
     return dev
 
 

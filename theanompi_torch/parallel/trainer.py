@@ -1,28 +1,43 @@
-"""The trainer core and the rule facade, for one process.
+"""The trainer core and the rule facade, on one rank of a data-parallel
+process group (or one process alone).
 
 Counterpart of the core of ``theanompi_tpu/parallel/trainer.py``:
 ``make_local_step`` (:76) as :func:`make_train_step` — loss, backward,
-exchange, optimizer update — with ``n_subb`` gradient accumulation
+exchange, optimizer update, then the metrics and the new model state
+averaged over the ranks (``pmean_floats`` :57, through the exchanger's
+:func:`fused_pmean`) — with ``n_subb`` gradient accumulation
 (``_accumulated_grads``, :229, the model state threaded through the
 micro-batches in order); :class:`BaseTrainer` with ``init_state``,
-``train_iter``, ``val_iter``, ``validate``, ``_run_epochs`` and ``run``;
-and :class:`Rule` with ``init``/``wait``.  PyTorch runs eagerly, so there
-is nothing to compile: ``compile_iter_fns`` builds the step closure.
+``train_iter``, ``val_iter``, ``validate`` (``make_local_eval`` :280: each
+rank evaluates its share of a validation batch, the means averaged over
+the ranks), ``_run_epochs`` and ``run``; and :class:`Rule` with
+``init``/``wait`` (:1493).  PyTorch runs eagerly, so there is nothing to
+compile: ``compile_iter_fns`` builds the step closure.
+
+The reference's ``data`` mesh axis is the process group
+(:mod:`theanompi_torch.dist`): a run of N ranks trains on global batches
+of ``batch_size x N`` rows (:410), rank r on rows ``[r b, (r + 1) b)``
+of each, which is how the mesh shards them.  At one process the group is
+absent and every collective is skipped.
 
 Params are fp32 masters; the model casts to the compute dtype inside
 ``loss_fn``, and autograd through that cast returns fp32 grads.  The
 trainer holds the model's state (BatchNorm running statistics) beside
 params and optimizer state: each step returns the new one, and
-validation evaluates on it.  Dropout
-draws from a ``torch.Generator`` on the trainer's device seeded with
-``derive_seed("dropout", seed, step)`` (``..., step, i`` for micro-batch
-``i``), so masks repeat for the same seed and step and differ across
-steps.  Device syncs happen only at print boundaries and in validation.
+validation evaluates on it.  Dropout draws from a ``torch.Generator`` on
+the trainer's device seeded with ``derive_seed("dropout", seed, step)``
+(``..., step, i`` for micro-batch ``i``), with the rank appended above a
+world of 1 (:func:`theanompi_torch.dist.replica_key`), so masks repeat
+for the same seed and step and differ across steps and ranks; the
+exchange (``ring_int8``'s rounding) draws from its own per-rank stream,
+``derive_seed("exchange", seed, step, ...rank)`` (the reference's
+``EXCHANGE_RNG_TAG``).  Device syncs happen only at print boundaries and
+in validation.  Only rank 0 prints and saves the recorder.
 
 Not carried by this slice, and refused rather than ignored: checkpoints
 and resume, telemetry, the resilience stack (fault plans, sentinel,
-watchdog, preemption), the profiler window, the prefetcher, sharded
-meshes and more than one worker (:data:`NOT_PORTED_KEYS`).
+watchdog, preemption), the profiler window, the prefetcher, the
+exchange's overlap and ramp, and sharded meshes (:data:`NOT_PORTED_KEYS`).
 """
 
 from __future__ import annotations
@@ -31,7 +46,9 @@ from typing import Any
 
 import torch
 
+from theanompi_torch import dist as tdist
 from theanompi_torch.models.data.base import derive_seed
+from theanompi_torch.parallel.exchanger import fused_pmean
 from theanompi_torch.parallel.mesh import resolve_device
 from theanompi_torch.tree import tree_leaves_with_path, tree_map
 from theanompi_torch.utils.helper_funcs import import_model, to_device
@@ -49,8 +66,7 @@ NOT_PORTED_KEYS = (
     "sentinel_max_skips", "sentinel_max_rollbacks", "watchdog",
     "watchdog_multiple", "watchdog_min_s", "watchdog_poll_s",
     "heartbeat_path", "handle_preemption", "prefetch_stall_timeout",
-    "exch_bucket_mb", "exch_overlap", "exch_ramp", "n_model", "n_seq",
-    "n_pipe")
+    "exch_overlap", "exch_ramp", "n_model", "n_seq", "n_pipe")
 
 
 def _leaves(tree) -> list:
@@ -64,9 +80,10 @@ def _unflatten(tree, leaves: list):
 
 
 def _dropout_gen(device, seed: int, *key):
-    """The dropout generator of one step (and micro-batch)."""
+    """The dropout generator of one step (and micro-batch) on this
+    rank."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(derive_seed("dropout", seed, *key))
+    gen.manual_seed(derive_seed("dropout", seed, *key, *tdist.replica_key()))
     return gen
 
 
@@ -114,9 +131,10 @@ def make_train_step(model, optimizer, exchanger, seed: int, device):
     """The per-step function: ``step(params, state, opt_state, batch, lr,
     step) -> (new_params, new_state, new_opt_state, metrics)`` — loss and
     backward (over ``n_subb`` micro-batches when the model config asks),
-    the exchange, then the optimizer update under ``torch.no_grad``.  At
-    one process the model state needs no exchange (the reference's
-    ``pmean`` of it is the identity there)."""
+    the exchange, the optimizer update under ``torch.no_grad``, then the
+    float metrics and the new model state averaged over the ranks (one
+    collective a dtype; already equal under sync-BN, the mean repairs
+    drift otherwise)."""
     n_subb = int(model.config.get("n_subb", 1) or 1)
 
     def train_step(params, state, opt_state, batch, lr, step):
@@ -127,10 +145,13 @@ def make_train_step(model, optimizer, exchanger, seed: int, device):
         else:
             new_state, metrics, grads = _accumulated_grads(
                 model, params, state, batch, seed, step, device, n_subb)
-        grads = exchanger.exchange(grads)
+        grads = exchanger.exchange(grads, seed=derive_seed(
+            "exchange", seed, step, *tdist.replica_key()))
         with torch.no_grad():
             new_params, new_opt_state = optimizer.update(
                 grads, opt_state, params, lr)
+            metrics = fused_pmean(metrics)
+            new_state = fused_pmean(new_state)
         return new_params, new_state, new_opt_state, metrics
 
     return train_step
@@ -148,7 +169,8 @@ class BaseTrainer:
         self.recorder = recorder or Recorder()
         self.seed = seed
         self.optimizer = model.build_optimizer()
-        self.global_batch = model.batch_size   # one worker
+        self.rank, self.n_workers = tdist.rank(), tdist.world()
+        self.global_batch = model.batch_size * self.n_workers
         self.exchanger = None
         self._step_fn = None
         self.params = None
@@ -188,7 +210,19 @@ class BaseTrainer:
         r.print_train_info(self.iteration)
         return metrics
 
+    def rows(self, global_rows: int) -> tuple[int, int]:
+        """This rank's rows of a global batch of ``global_rows``."""
+        b = global_rows // self.n_workers
+        return self.rank * b, (self.rank + 1) * b
+
+    def train_batches(self, epoch: int):
+        """This rank's rows of the epoch's global batches."""
+        return self.model.data.train_batches(
+            self.global_batch, epoch, seed=self.seed,
+            rows=self.rows(self.global_batch))
+
     def val_iter(self, batch: dict) -> dict:
+        """The metrics of this rank's share of a validation batch."""
         batch = to_device(batch, self.device)
         with torch.no_grad():
             _, (_, metrics) = self.model.loss_fn(self.params, self.state,
@@ -196,15 +230,18 @@ class BaseTrainer:
         return metrics
 
     def validate(self, epoch: int) -> dict:
+        # the largest worker-divisible batch, as the reference (:1024)
         vb = min(self.global_batch, self.model.data.n_val)
+        vb -= vb % self.n_workers
         if vb == 0:
             return {}
         accums: dict[str, list] = {}
-        for batch in self.model.data.val_batches(vb):
+        for batch in self.model.data.val_batches(vb, rows=self.rows(vb)):
             for k, v in self.val_iter(batch).items():
                 accums.setdefault(k, []).append(v)  # one pull after the loop
-        means = {k: float(torch.stack(v).double().mean())
-                 for k, v in accums.items()}
+        # each batch's metrics averaged over the ranks, in one collective
+        stacked = fused_pmean({k: torch.stack(v) for k, v in accums.items()})
+        means = {k: float(v.double().mean()) for k, v in stacked.items()}
         if {"perplexity", "cost"} <= means.keys():
             means["perplexity"] = float(torch.tensor(means["cost"]).exp())
         self.recorder.val_metrics(epoch, **means)
@@ -216,8 +253,7 @@ class BaseTrainer:
             self.epoch = epoch
             self.recorder.start_epoch()
             lr = model.adjust_hyperp(epoch)
-            it = iter(model.data.train_batches(self.global_batch, epoch,
-                                               seed=self.seed))
+            it = iter(self.train_batches(epoch))
             while True:
                 self.recorder.start("wait")
                 try:
@@ -253,12 +289,17 @@ class Rule:
                   modelclass="TransformerLM", model_config={...})
         rule.wait()
 
-    ``devices`` is the worker count (1, or None for one); ``device`` the
-    torch device (None: the card, raising without CUDA)."""
+    ``devices`` is the worker count: the ranks of the process group this
+    process belongs to (1 without one; None takes the group's size), each
+    rank calling ``init`` and ``wait`` alike.  ``device`` is the torch
+    device (None: the rank's card, raising without CUDA)."""
 
     def __init__(self, config: dict[str, Any] | None = None):
         self.config = config or {}
         self.trainer: BaseTrainer | None = None
+
+    def adjust_model_config(self, model_config: dict, n_workers: int) -> None:
+        """Rule-specific model-config defaults (sync-BN for BSP)."""
 
     def make_trainer(self, model, device, recorder) -> BaseTrainer:
         raise NotImplementedError
@@ -270,19 +311,25 @@ class Rule:
         unported = sorted(k for k in self.config if k in NOT_PORTED_KEYS)
         if unported:
             raise NotImplementedError(
-                f"rule keys {unported} not yet ported (this slice trains "
-                f"one process without checkpoints, telemetry or the "
-                f"resilience stack)")
-        if devices not in (None, 1):
-            raise NotImplementedError(
-                f"devices={devices!r}: more than one worker not yet ported "
-                f"(ROADMAP queue 1 item 5)")
+                f"rule keys {unported} not yet ported (ROADMAP queue 1: "
+                f"exch_overlap and exch_ramp item 10, checkpoints item 8, "
+                f"the prefetcher item 6, the resilience stack item 14, "
+                f"telemetry item 15, sharded meshes item 13)")
+        n = tdist.world()
+        if devices is not None and devices != n:
+            raise ValueError(
+                f"devices={devices!r} in a run of {n} rank(s): start "
+                f"{devices} ranks (theanompi_torch.dist.spawn, or the "
+                f"launcher's --devices {devices}), each calling init")
         device = resolve_device(device)
-        model = import_model(modelfile, modelclass)(dict(model_config or {}))
+        model_config = dict(model_config or {})
+        self.adjust_model_config(model_config, n)
+        model = import_model(modelfile, modelclass)(model_config)
+        lead = tdist.rank() == 0
         recorder = Recorder(
             print_freq=self.config.get("print_freq", 40),
-            save_dir=self.config.get("record_dir"),
-            verbose=self.config.get("verbose", model.verbose))
+            save_dir=self.config.get("record_dir") if lead else None,
+            verbose=lead and self.config.get("verbose", model.verbose))
         self.trainer = self.make_trainer(model, device, recorder)
         self.trainer.compile_iter_fns()
         self.trainer.init_state()
@@ -293,4 +340,3 @@ class Rule:
         if self.trainer is None:
             raise RuntimeError("call init() before wait()")
         return self.trainer.run()
-
