@@ -96,22 +96,40 @@ Phases (any failure exits non-zero and prints no result line):
    carries the all-reduce strategies (``psum``, ``psum_bf16``,
    ``psum_bucket``, ``psum_bf16_bucket``), ``fused_pmean`` and sync-BN but
    no send/recv of CUDA tensors, so the ring strategies are not run (the
-   phase says so).  It prints the backend and the rank-to-card map.  The
-   exchange of per-rank ragged trees under each strategy against the
-   ranks' mean (bit-equal on every rank); then the transformer at phase
-   4's config, global batch 16 as N x 16/N, ``psum_bucket``, 4 steps, and
-   ResNet-50 at phase 5's config with sync-BN, global batch 256 as N x
-   256/N (shards of 128, so a rank builds only the shards it trains on),
-   3 steps, each in bf16 and fp32, held against one process at the same
-   global batch from the same init and batches: the step-1 loss, the
-   global norm of the exchanged grads, the params' update after step 1
-   and (ResNet-50) the BN running state after it, within the stated
-   limits; the ranks' losses equal and finite; each flash kernel launched
-   ``8 x 4`` times on every rank (counts zeroed just before the steps and
-   read just after), none by ResNet-50.  Printed: each run's step p50 and
-   the exchange's wire bytes a rank a step; on one card the step time is
-   taken on a card shared by two ranks with the all-reduce staged through
-   the host, not a speed figure.
+   phase says so); gloo carries ``zero1``'s ``reduce_scatter_tensor`` and
+   ``all_gather_into_tensor`` of CUDA tensors, and a collective that
+   fails fails the phase.  It prints the backend and the rank-to-card
+   map.  The exchange of per-rank ragged trees under
+   each strategy against the ranks' mean (bit-equal on every rank); then
+   the transformer at phase 4's config, global batch 16 as N x 16/N, 4
+   steps, and ResNet-50 at phase 5's config with sync-BN, global batch
+   256 as N x 256/N (shards of 128, so a rank builds only the shards it
+   trains on), 3 steps, each in bf16 and fp32 under ``psum_bucket``, held
+   against one process at the same global batch from the same init and
+   batches: the step-1 loss, the global norm of the exchanged grads, the
+   params' update after step 1 and (ResNet-50) the BN running state after
+   it, within the stated limits.  Then the exchange's other paths: the
+   transformer in bf16 and fp32 under ``psum_bucket`` with
+   ``exch_overlap``, ``zero1`` and ``zero1`` with ``exch_overlap``, and
+   ResNet-50 in bf16 under ``zero1`` with ``exch_overlap`` (sync-BN's
+   backward all-reduces interleaving with the hook-issued buckets).  An
+   overlapped transformer run's params must be bit-equal after every step
+   (a 64-bit checksum of their bits) to the same strategy's fused run on
+   the same ranks, and every bucket's collective issued from backward,
+   counted by name: under ``psum_bucket`` one all-reduce a bucket, under
+   ``zero1`` one reduce-scatter and one all-gather a bucket and the one
+   all-reduce of clipping's norm where ``grad_clip`` is set;
+   ``zero1`` is held against the one-process run within the limits above
+   (ResNet-50 only so: cuDNN's backward is not bit-reproducible).  On
+   every run: the ranks' losses equal and finite, their params bit-equal
+   after every step, each flash kernel launched ``8 x 4`` times on every
+   rank by the transformer (counts zeroed just before the steps and read
+   just after) and none by ResNet-50, and under ``zero1`` each rank's
+   optimizer state 1/N of ``psum_bucket``'s bytes (both printed).
+   Printed: each run's step p50, the exchange's wire bytes a rank a step
+   and its collectives a step; on one card the step time is taken on a
+   card shared by two ranks with the all-reduce staged through the host,
+   not a speed figure.
 
 ``python3 chip_smoke.py --decode`` runs phase 1 and kernels 4 and 5 of
 phase 2 only, and prints no result line; ``--conv`` runs phases 1 and 5
@@ -120,9 +138,10 @@ only, and ``--bsp`` phases 1 and 6 only, neither printing a result line.
 Output: the ``nvidia-smi`` line, one line per check, the serve reports,
 the training lines, the conv-net lines, the multi-rank lines, then
 ``{"kernels": [...]}`` (each kernel's ``launches_by_path``: the serving
-runs, the one-process training run and ``train_bsp2_bf16``, the
-multi-rank bf16 transformer run summed over its ranks) and, last,
-``{"ok": true, "device": {...}}``.  fp32 products run without TF32
+runs, the one-process training run and the multi-rank bf16 transformer
+runs summed over their ranks, ``train_bsp2_bf16`` under ``psum_bucket``
+and its ``_overlap``, ``_zero1`` and ``_zero1_overlap`` twins) and,
+last, ``{"ok": true, "device": {...}}``.  fp32 products run without TF32
 throughout.
 """
 
@@ -1439,7 +1458,8 @@ def bsp_layout(torch):
     count = torch.cuda.device_count()
     if count >= 2:
         return (min(count, 4), "nccl", "cuda",
-                LEAFWISE_STRATEGIES + BUCKETED_STRATEGIES, None)
+                tuple(s for s in LEAFWISE_STRATEGIES + BUCKETED_STRATEGIES
+                      if s != "zero1"), None)
     return (2, "gloo", "cuda:0", GLOO_CUDA_STRATEGIES,
             "the ring strategies (ring, ring_bf16, ring_bucket, "
             "ring_bf16_bucket, ring_int8) were not run on the card: with "
@@ -1466,7 +1486,8 @@ def _saved_vector(torch, saved, key):
 def bsp_exchange_check(tmp, vals, strategies, result):
     """The exchange jobs' outputs (written by every rank) against the
     ranks' mean of ``vals`` (``[n, ...]`` a leaf), per strategy, and every
-    rank's result equal."""
+    rank's result equal; ``none`` (no exchange) against each rank's own
+    input."""
     import numpy as np
 
     n = len(next(iter(vals.values())))
@@ -1478,11 +1499,12 @@ def bsp_exchange_check(tmp, vals, strategies, result):
                 for r in range(n)]
         err = 0.0
         for k, v in vals.items():
-            want = v.mean(0)
             for r in range(n):
                 got = outs[r][k]
-                check(np.array_equal(got, outs[0][k]), f"bsp exchange {s}: "
-                      f"rank {r} differs from rank 0 on {k}")
+                want = v[r] if s == "none" else v.mean(0)
+                check(s == "none" or np.array_equal(got, outs[0][k]),
+                      f"bsp exchange {s}: rank {r} differs from rank 0 on "
+                      f"{k}")
                 err = max(err, float(np.max(np.abs(got - want) / (
                     tol + tol * np.abs(want)))))
         worst[s] = round(err, 4)
@@ -1494,11 +1516,49 @@ def bsp_exchange_check(tmp, vals, strategies, result):
           flush=True)
 
 
+def bucket_collectives_ok(res, strategy) -> bool:
+    """Whether an overlapped run's first step issued every bucket's
+    collective from backward: its exchange's collectives by name, one
+    all-reduce a bucket under ``psum_bucket``; under ``zero1`` one
+    reduce-scatter and one all-gather a bucket, and the one all-reduce
+    of clipping's norm where ``grad_clip`` is set."""
+    c, k = res["collectives"], res["buckets_from_backward"]
+    if strategy == "zero1":
+        return (k > 0 and c.get("reduce_scatter_tensor") == k
+                and c.get("all_gather_into_tensor") == k
+                and c.get("all_reduce", 0) == (1 if res["grad_clip"] else 0))
+    return k > 0 and c == {"all_reduce": k}
+
+
+def _run_name(model, precision, strategy, overlap):
+    return (f"{model}-{precision}-{strategy}"
+            + ("-overlap" if overlap else ""))
+
+
+def _held_against_one(torch, tmp, name, res, one, one_name, tol):
+    """The distances of a run's step 1 from the one-process step 1 at the
+    same global batch: loss, global grad norm, the params' update[, the
+    BN state] (relative); -> the list."""
+    mine = torch.load(os.path.join(tmp, f"{name}-r0.pt"))
+    ref = torch.load(os.path.join(tmp, f"{one_name}-r0.pt"))
+    d = [abs(res[0]["metrics"][0]["cost"] - one["metrics"][0]["cost"])
+         / abs(one["metrics"][0]["cost"]),
+         abs(res[0]["grad_norm"] - one["grad_norm"]) / one["grad_norm"]]
+    for key in ("update", "state1")[:len(tol) - 2]:
+        a, b = (_saved_vector(torch, mine, key),
+                _saved_vector(torch, ref, key))
+        d.append(float((a - b).norm() / b.norm()))
+    return d
+
+
 def bsp_phase(torch, smi, kernels):
     """Phase 6: BSP on ranks of a process group against one process at
-    the same global batch.  -> the transformer's bf16 launches over the
-    ranks (the ``train_bsp2_bf16`` path)."""
+    the same global batch, and the exchange's ``zero1`` and overlap
+    against the fused ``psum_bucket`` run.  -> each transformer bf16
+    path's launches over the ranks (``train_bsp2_bf16`` and its
+    ``_overlap``, ``_zero1`` and ``_zero1_overlap`` twins)."""
     import gc
+    import shutil
     import statistics
     import tempfile
 
@@ -1519,102 +1579,141 @@ def bsp_phase(torch, smi, kernels):
             for k, shape in BSP_EXCH_SHAPES.items()}
     np.savez(os.path.join(tmp, "exch.npz"), **vals)
     cases = [(s, s, 2**20, 5) for s in strategies]
-    runs, jobs = [], []
-    for model, cfg, steps, mfile, mclass, strategy in (
-            ("transformer", BSP_TRAIN_CFG, BSP_STEPS,
-             "theanompi_torch.models.transformer_lm", "TransformerLM",
-             "psum_bucket"),
-            ("resnet50", BSP_CONV_CFG, BSP_CONV_STEPS,
-             "theanompi_torch.models.resnet50", "ResNet50", "psum_bucket")):
-        for precision in ("bf16", "fp32"):
-            name = f"{model}-{precision}"
-            job = {"modelfile": mfile, "modelclass": mclass,
-                   "model_config": {**cfg, "precision": precision,
-                                    "batch_size": cfg["batch_size"] // n},
-                   "rule_config": {"exch_strategy": strategy, "seed": 0,
-                                   "verbose": False},
-                   "steps": steps, "out": os.path.join(tmp, name),
-                   "save": ["params0", "params1", "state1"],
-                   # the ranks are new processes: IEEE fp32, as here
-                   "allow_tf32": False}
-            runs.append((model, precision, name, job))
-            jobs.append(("bsp_run", (job,)))
+    models = {"transformer": (BSP_TRAIN_CFG, BSP_STEPS,
+                              "theanompi_torch.models.transformer_lm",
+                              "TransformerLM"),
+              "resnet50": (BSP_CONV_CFG, BSP_CONV_STEPS,
+                           "theanompi_torch.models.resnet50", "ResNet50")}
+    # (model, precision, strategy, overlap): the fused psum_bucket runs,
+    # held against one process, then the exchange's other paths
+    variants = [(m, p, "psum_bucket", False) for m in models
+                for p in ("bf16", "fp32")]
+    variants += [("transformer", p, s, o) for p in ("bf16", "fp32")
+                 for s, o in (("psum_bucket", True), ("zero1", False),
+                              ("zero1", True))]
+    variants.append(("resnet50", "bf16", "zero1", True))
+
+    def job_of(model, precision, strategy, overlap, ranks):
+        cfg, steps, mfile, mclass = models[model]
+        return {"modelfile": mfile, "modelclass": mclass,
+                "model_config": {**cfg, "precision": precision,
+                                 "batch_size": cfg["batch_size"] // ranks},
+                "rule_config": {"exch_strategy": strategy,
+                                "exch_overlap": overlap, "seed": 0,
+                                "verbose": False},
+                "steps": steps,
+                "out": os.path.join(tmp, _run_name(model, precision,
+                                                   strategy, overlap)
+                                    + ("" if ranks > 1 else "-one")),
+                "save": ["params0", "params1", "state1"], "save_ranks": [0],
+                # the ranks are new processes: IEEE fp32, as here
+                "allow_tf32": False}
+
     # the one-process runs at the global batch, first (their memory is
     # returned to the card before the ranks start)
     single = {}
-    for model, precision, name, job in runs:
-        cfg = {**job["model_config"],
-               "batch_size": job["model_config"]["batch_size"] * n}
-        single[name] = bsp_run(cards[0], {**job, "model_config": cfg,
-                                          "out": os.path.join(tmp,
-                                                              name + "-one")})
+    for v in [(m, p, "psum_bucket", False) for m in models
+              for p in ("bf16", "fp32")]:
+        single[v] = bsp_run(cards[0], job_of(*v, 1))
         gc.collect()
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     per_rank = tdist.spawn(run_all, n, backend, device, (
         [("exchange_cases", (os.path.join(tmp, "exch.npz"), tmp, cases)),
-         *jobs],), timeout_s=900)
+         *[("bsp_run", (job_of(*v, n),)) for v in variants]],),
+        timeout_s=900)
     print(f"bsp: the ranks' jobs took {time.perf_counter() - t0:.1f} s",
           flush=True)
     bsp_exchange_check(tmp, vals, strategies, per_rank[0][0])
     label = ("a card shared by two ranks, all-reduce staged through the "
              "host (gloo): not a speed figure" if backend == "gloo" else
              "one card a rank (NCCL)")
-    launches_bf16 = {}
-    for i, (model, precision, name, job) in enumerate(runs):
-        res = [per_rank[r][i + 1] for r in range(n)]
-        one = single[name]
-        mine = torch.load(os.path.join(tmp, f"{name}-r0.pt"))
-        ref = torch.load(os.path.join(tmp, f"{name}-one-r0.pt"))
+    results = {v: [per_rank[r][i + 1] for r in range(n)]
+               for i, v in enumerate(variants)}
+    launches_by_path = {}
+    for v, res in results.items():
+        model, precision, strategy, overlap = v
+        name = _run_name(*v)
+        base = results[(model, precision, "psum_bucket", False)]
+        one_v = (model, precision, "psum_bucket", False)
+        one = single[one_v]
         tol = BSP_TOL[model, precision]
-        d = [abs(res[0]["metrics"][0]["cost"] - one["metrics"][0]["cost"])
-             / abs(one["metrics"][0]["cost"]),
-             abs(res[0]["grad_norm"] - one["grad_norm"]) / one["grad_norm"]]
-        for key in ("update", "state1")[:len(tol) - 2]:
-            a, b = (_saved_vector(torch, mine, key),
-                    _saved_vector(torch, ref, key))
-            d.append(float((a - b).norm() / b.norm()))
         p50 = statistics.median(res[0]["step_s"])
-        p50_one = statistics.median(one["step_s"])
         launches = [r["launches"] for r in res]
-        print(f"bsp {model}[{precision}] {smi}: {n} x "
-              f"{job['model_config']['batch_size']} against 1 x "
-              f"{one['global_batch']}, {job['rule_config']['exch_strategy']}"
-              f": step-1 loss {res[0]['metrics'][0]['cost']:.7g} / "
-              f"{one['metrics'][0]['cost']:.7g} (rel {d[0]:.3g}, tol "
-              f"{tol[0]:g}); grad norm {res[0]['grad_norm']:.7g} / "
-              f"{one['grad_norm']:.7g} (rel {d[1]:.3g}, tol {tol[1]:g}); "
-              f"update rel {d[2]:.3g} (tol {tol[2]:g})"
-              + (f"; BN state rel {d[3]:.3g} (tol {tol[3]:g})"
-                 if len(tol) > 3 else "")
-              + f"; losses {[m['cost'] for m in res[0]['metrics']]}; "
-              f"step_ms p50 {p50 * 1e3:.3f} on {label} (one process "
-              f"{p50_one * 1e3:.3f}); exchange wire bytes a rank a step "
-              f"{res[0]['wire_bytes']} ({res[0]['all_reduces']} gradient "
-              f"all-reduces); "
-              f"launches per rank {launches}", flush=True)
-        check(all(x <= t for x, t in zip(d, tol)), f"bsp {model}"
-              f"[{precision}]: the {n}-rank step differs from the "
-              f"one-process step")
+        line = (f"bsp {model}[{precision}] {strategy}"
+                + (" overlap" if overlap else "") + f" {smi}: {n} x "
+                f"{res[0]['global_batch'] // n}, losses "
+                f"{[m['cost'] for m in res[0]['metrics']]}; step_ms p50 "
+                f"{p50 * 1e3:.3f} on {label} (one process "
+                f"{statistics.median(one['step_s']) * 1e3:.3f}); exchange "
+                f"wire bytes a rank a step {res[0]['wire_bytes']}, "
+                f"collectives a step {res[0]['collectives']}, buckets issued "
+                f"from backward {res[0]['buckets_from_backward']}; optimizer "
+                f"state a rank {res[0]['opt_state_bytes']} B "
+                f"(psum_bucket's {base[0]['opt_state_bytes']} B); launches "
+                f"per rank {launches}")
+        if not overlap:
+            d = _held_against_one(torch, tmp, name, res, one,
+                                  _run_name(*one_v) + "-one", tol)
+            line += (f"; step 1 against one process: loss rel {d[0]:.3g} "
+                     f"(tol {tol[0]:g}), grad norm rel {d[1]:.3g} (tol "
+                     f"{tol[1]:g}), update rel {d[2]:.3g} (tol {tol[2]:g})"
+                     + (f", BN state rel {d[3]:.3g} (tol {tol[3]:g})"
+                        if len(d) > 3 else ""))
+            check(all(x <= t for x, t in zip(d, tol)), f"bsp {name}: the "
+                  f"{n}-rank step differs from the one-process step")
+        else:
+            fused = results.get((model, precision, strategy, False))
+            if fused is not None:
+                same = (res[0]["digests"] == fused[0]["digests"]
+                        and res[0]["metrics"] == fused[0]["metrics"])
+                line += (f"; params after every step bit-equal to the fused "
+                         f"{strategy} run: {same}")
+                check(same, f"bsp {name}: the overlapped run's params differ "
+                      f"from the fused run's")
+            else:
+                # ResNet-50's overlapped run: no fused twin; one process
+                d = _held_against_one(torch, tmp, name, res, one,
+                                      _run_name(*one_v) + "-one", tol)
+                line += (f"; step 1 against one process: {[f'{x:.3g}' for x in d]}"
+                         f" (tol {tol})")
+                check(all(x <= t for x, t in zip(d, tol)), f"bsp {name}: "
+                      f"the {n}-rank step differs from the one-process step")
+            check(bucket_collectives_ok(res[0], strategy), f"bsp {name}: "
+                  f"{res[0]['buckets_from_backward']} buckets issued from "
+                  f"backward, collectives {res[0]['collectives']}")
+        print(line, flush=True)
         check(all(x == x and abs(x) != float("inf") for r in res
                   for x in (m["cost"] for m in r["metrics"])),
-              f"bsp {model}[{precision}]: a loss is not finite")
+              f"bsp {name}: a loss is not finite")
         check(all(r["metrics"] == res[0]["metrics"] for r in res),
-              f"bsp {model}[{precision}]: the ranks' metrics differ")
+              f"bsp {name}: the ranks' metrics differ")
+        check(all(r["digests"] == res[0]["digests"] for r in res),
+              f"bsp {name}: the ranks' params differ after a step")
+        if strategy == "zero1":
+            ratio = res[0]["opt_state_bytes"] * n / base[0]["opt_state_bytes"]
+            check(abs(ratio - 1) < 1e-3, f"bsp {name}: optimizer state a "
+                  f"rank {res[0]['opt_state_bytes']} B is not 1/{n} of "
+                  f"{base[0]['opt_state_bytes']} B")
         if model == "transformer":
             want = 8 * BSP_STEPS
             for r, got in enumerate(launches):
                 check(all(got[k] == want for k in (
                     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
-                    f"bsp transformer[{precision}]: rank {r} launched "
-                    f"{got}, expected {want} of each flash kernel")
+                    f"bsp {name}: rank {r} launched {got}, expected "
+                    f"{want} of each flash kernel")
             if precision == "bf16":
-                launches_bf16 = {k.name: sum(got[k.name] for got in launches)
-                                 for k in kernels}
+                path = "train_bsp2_bf16" + (
+                    "" if strategy == "psum_bucket" else "_zero1") + (
+                    "_overlap" if overlap else "")
+                launches_by_path[path] = {
+                    k.name: sum(got[k.name] for got in launches)
+                    for k in kernels}
         else:
             check(not any(v for got in launches for v in got.values()),
-                  f"bsp resnet50[{precision}]: launched {launches}")
-    return launches_bf16
+                  f"bsp {name}: launched {launches}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches_by_path
 
 
 def main() -> int:
@@ -1727,7 +1826,8 @@ def main() -> int:
     by_path = {k.name: {"serve_bf16": runs[("bf16", False)][0][k.name],
                         "serve_bf16_int8": runs[("bf16", True)][0][k.name],
                         "train_bf16": train_launches[k.name],
-                        "train_bsp2_bf16": bsp_launches[k.name]}
+                        **{path: got[k.name]
+                           for path, got in bsp_launches.items()}}
                for k in K.KERNELS}
 
     # one representative main-path shape per kernel for the summary line

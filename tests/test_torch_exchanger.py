@@ -25,7 +25,9 @@ two leaves and an oversized bucket of the third).
 - (d) the collective budget: a ``psum_bucket`` BSP step of the tiny
   ``TransformerLM`` (38 leaves) issues at most 4 gradient all-reduces;
 - ``fused_pmean`` against the reference's, one collective a dtype;
-- ``zero1`` and ``overlap`` refused, naming ROADMAP item 10.
+- what stays refused: overlap of a leaf-wise strategy, ``exchange()`` on
+  a ``zero1`` exchanger (its exchange is its update:
+  ``tests/test_torch_zero1_overlap.py``), an unknown strategy.
 """
 
 import jax
@@ -48,8 +50,10 @@ from theanompi_torch.parallel.rank_jobs import run_all
 
 N = 4
 BUCKET_BYTES = 128
-#: the ten ported strategies (``zero1`` is ROADMAP item 10)
-STRATEGIES = ex.LEAFWISE_STRATEGIES + ex.BUCKETED_STRATEGIES
+#: the ten strategies whose ``exchange`` is a mean (``zero1`` fuses the
+#: exchange into the update: ``tests/test_torch_zero1_overlap.py``)
+STRATEGIES = tuple(s for s in ex.LEAFWISE_STRATEGIES + ex.BUCKETED_STRATEGIES
+                   if s != "zero1")
 #: the reference's tolerances, ``tests/test_exchanger.py:34``
 TOL = {"bf16": 1e-2, "int8": 5e-2, "fp32": 1e-6}
 SHAPES = {"a": (13,), "b": (3, 5), "z/k": (7, 3, 2)}
@@ -277,10 +281,18 @@ def test_fused_pmean_against_the_reference(runs, mesh4):
 
 
 def test_zero1_and_overlap_are_refused():
-    for kw in ({"strategy": "zero1"}, {"strategy": "psum_bucket",
-                                      "overlap": True}):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            ex.Exchanger(**kw)
+    """What stays refused now that ``zero1`` and overlap are ported: a
+    leaf-wise strategy with overlap (it has no buckets to issue), and
+    ``exchange()`` on ``zero1``, whose exchange is its update."""
+    for s in ex.LEAFWISE_STRATEGIES:
+        with pytest.raises(ValueError, match="not bucketed"):
+            ex.Exchanger(s, overlap=True)
+    for s in ex.BUCKETED_STRATEGIES:
+        assert ex.Exchanger(s, overlap=True).overlap
+    z = ex.Exchanger("zero1")
+    assert z.fuses_update and z.bucketed
+    with pytest.raises(ValueError, match="exchange_and_update"):
+        z.exchange({"w": torch.ones(3)})
     with pytest.raises(ValueError, match="unknown exchange strategy"):
         ex.Exchanger("asa32")
     # at one process every strategy is the identity, with no group

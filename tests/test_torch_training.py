@@ -13,7 +13,8 @@ after one SGD step and the loss after three steps, for
 Also: ``n_subb=2`` equals the full batch; ``BSP().init(...)`` on
 ``device="cpu"`` trains 2 epochs through ``.wait()`` and validates below
 its first train loss; the default configs agree; unported rule keys
-(``zero1``, the exchange's overlap and ramp among them) raise.
+raise, and the exchange's ``zero1``, overlap and ramp keys are not among
+them.
 
 Tolerance: rtol 1e-5 / atol 1e-6 in fp32 unless a reason is written.
 """
@@ -182,11 +183,19 @@ def test_rule_refuses_what_it_does_not_carry():
         assert key in NOT_PORTED_KEYS
         with pytest.raises(NotImplementedError, match="not yet ported"):
             BSP({key: "x"}).init(devices=1, model_config=cfg, device="cpu")
-    # the exchange's sharded update, overlap and ramp: ROADMAP item 10
-    for rule_cfg in ({"exch_strategy": "zero1"}, {"exch_overlap": True},
-                     {"exch_ramp": "ring_int8:1,psum:2"}):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            BSP(rule_cfg).init(devices=1, model_config=cfg, device="cpu")
+    # the exchange's sharded update, overlap and ramp are carried: their
+    # keys reach the trainer, which refuses only what the reference does
+    for key in ("exch_overlap", "exch_ramp"):
+        assert key not in NOT_PORTED_KEYS
+    rule = BSP({"exch_strategy": "zero1"}).init(devices=1, model_config=cfg,
+                                                device="cpu")
+    assert rule.trainer.exchanger.fuses_update
+    with pytest.raises(ValueError, match="not bucketed"):
+        BSP({"exch_overlap": True}).init(devices=1, model_config=cfg,
+                                         device="cpu")
+    with pytest.raises(ValueError, match="zero1"):
+        BSP({"exch_strategy": "zero1", "exch_ramp": "ring_int8:1"}).init(
+            devices=1, model_config=cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="stream"):
         TransformerLM({**cfg, "dataset": "stream"}).data
 

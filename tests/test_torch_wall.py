@@ -51,6 +51,7 @@ def test_import_wall_in_a_fresh_interpreter():
         "import theanompi_torch.models.data.imagenet\n"
         "import theanompi_torch.models.data.cifar10\n"
         "import theanompi_torch.dist, theanompi_torch.parallel.rank_jobs\n"
+        "import theanompi_torch.parallel.overlap\n"
         "from theanompi_torch import BSP\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

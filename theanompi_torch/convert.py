@@ -18,6 +18,14 @@ them HWIO ``[kh, kw, in, out]``, the port OIHW ``[out, in, kh, kw]``
 on the way out.  Dense weights stay ``[Din, Dout]`` used as ``x @ w``: the
 int8 chunk and band layout depends on that row-major flatten, so nothing
 is transposed into ``nn.Linear``'s layout.
+
+``zero1``'s optimizer state: the reference keeps global flat ``(padded,)``
+bucket buffers sharded over the ``data`` axis (``{"velocity": [buf,
+...]}``), a rank of the port only its ``padded // n`` slice of each:
+:func:`zero1_opt_state_from_jax` cuts rank r's slices out of the
+reference's buffers, :func:`zero1_opt_state_to_jax` joins the ranks'
+slices back.  Replicated entries (Adam's step ``t``) are the same on both
+sides.
 """
 
 from __future__ import annotations
@@ -105,3 +113,46 @@ def quantized_from_jax(q, scales, shape, dtype) -> QuantizedTensor:
 def _torch_dtype(dtype) -> torch.dtype:
     name = str(dtype)
     return getattr(torch, name if name == "bfloat16" else np.dtype(name).name)
+
+
+
+def _relayout(buf: np.ndarray, bucket, to_port: bool) -> np.ndarray:
+    """One global flat bucket between the two layouts: a 4-D leaf's
+    elements sit HWIO-ordered in the reference's buffer, OIHW in the
+    port's (``bucket`` is the port's, from ``Exchanger.zero1_layout``)."""
+    out, off = [], 0
+    for size, shape in zip(bucket.sizes, bucket.shapes):
+        leaf = buf[off:off + size]
+        if len(shape) == 4:
+            hwio = tuple(shape[i] for i in _TO_HWIO)
+            leaf = (leaf.reshape(hwio).transpose(_TO_OIHW) if to_port else
+                    leaf.reshape(shape).transpose(_TO_HWIO)).reshape(-1)
+        out.append(leaf)
+        off += size
+    out.append(buf[off:])  # the padding
+    return np.concatenate(out)
+
+
+def zero1_opt_state_from_jax(opt_state: dict, layout: list, rank: int,
+                             n: int) -> dict:
+    """The reference's ``zero1`` optimizer state (numpy: lists of global
+    ``(padded,)`` buckets, replicated scalars) -> rank ``rank`` of ``n``'s
+    (CPU tensors: chunk ``rank`` of each bucket's ``reshape(n, -1)``, conv
+    kernels' elements in the port's order).  ``layout``: the port's
+    ``Exchanger.zero1_layout(params, n)``."""
+    return {k: [_tensor(_relayout(np.asarray(buf), b, True)
+                        .reshape(n, -1)[rank]) for buf, b in zip(v, layout)]
+            if isinstance(v, list) else _tensor(v)
+            for k, v in opt_state.items()}
+
+
+def zero1_opt_state_to_jax(rank_states: list, layout: list) -> dict:
+    """The ranks' ``zero1`` optimizer states, in rank order -> the
+    reference's (numpy: each bucket's slices joined and in its element
+    order; replicated entries from rank 0): the inverse of
+    :func:`zero1_opt_state_from_jax`."""
+    return {k: [_relayout(np.concatenate([_to_jax(s[k][i])
+                                          for s in rank_states]), b, False)
+                for i, b in enumerate(layout)]
+            if isinstance(v, list) else _to_jax(v)
+            for k, v in rank_states[0].items()}

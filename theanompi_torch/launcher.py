@@ -21,6 +21,11 @@ Exit codes (the reference's contract): 0 clean, 70 crash (environment or
 training), 78 config error, each with one ``tmlauncher: error:`` line on
 stderr (``THEANOMPI_DEBUG=1`` adds the traceback).
 
+The exchange's rule keys: ``--rule-set exch_strategy=zero1`` (the
+sharded update), ``--rule-set exch_overlap=true`` (collectives from
+backward) and ``--rule-set exch_ramp=ring_int8:1,psum_bucket:2`` (the
+strategy by epoch).
+
 Example (one H100; ``--devices 4`` on a host with four)::
 
     python -m theanompi_torch.launcher \\
@@ -63,14 +68,22 @@ class ConfigError(Exception):
     """A flag or ``K=V`` pair the launcher cannot act on."""
 
 
+#: the shell's spellings of a bool, which ``literal_eval`` would leave
+#: strings (and ``bool("false")`` is True)
+_BOOLS = {"true": True, "false": False}
+
+
 def _parse_kv(pairs: list[str]) -> dict:
-    """``k=v`` pairs with Python-literal values; bare strings stay
-    strings."""
+    """``k=v`` pairs with Python-literal values (``true``/``false`` in any
+    case are bools); bare strings stay strings."""
     out = {}
     for pair in pairs:
         if "=" not in pair:
             raise ConfigError(f"expected key=value, got {pair!r}")
         k, v = pair.split("=", 1)
+        if v.lower() in _BOOLS:
+            out[k] = _BOOLS[v.lower()]
+            continue
         try:
             out[k] = ast.literal_eval(v)
         except (ValueError, SyntaxError):

@@ -5,7 +5,10 @@ Counterpart of ``theanompi_tpu/parallel/bsp.py`` (``BSPTrainer`` :41,
 the port runs the step on every rank of a ``torch.distributed`` process
 group (or one process alone): forward and backward on the rank's rows of
 the global batch, the exchanger's mean-reduce of the grads, the optimizer
-update, then the metrics and model state averaged over the ranks.
+update (fused with the exchange under ``zero1``), then the metrics and
+model state averaged over the ranks.  ``exch_overlap`` issues the
+buckets' collectives from backward, and ``exch_ramp`` swaps the exchange
+strategy at epoch boundaries (:mod:`theanompi_torch.parallel.overlap`).
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ from __future__ import annotations
 import torch
 
 from theanompi_torch.dist import DATA_AXIS
-from theanompi_torch.parallel.exchanger import Exchanger
+from theanompi_torch.parallel.exchanger import BUCKETED_STRATEGIES, Exchanger
+from theanompi_torch.parallel.overlap import RampSchedule
 from theanompi_torch.parallel.trainer import BaseTrainer, Rule
 from theanompi_torch.tree import tree_to
 
@@ -22,23 +26,54 @@ class BSPTrainer(BaseTrainer):
     """Drives the BSP step for one model on one rank's device."""
 
     def __init__(self, model, exch_strategy: str = "psum",
-                 exch_bucket_mb: float = 4.0, **kwargs):
+                 exch_bucket_mb: float = 4.0, exch_overlap: bool = False,
+                 exch_ramp: str | None = None, **kwargs):
         super().__init__(model, **kwargs)
-        self.exchanger = Exchanger(
-            strategy=exch_strategy,
-            bucket_bytes=int(float(exch_bucket_mb) * 2**20))
+        self.exch_overlap = bool(exch_overlap)
+        self.ramp = (RampSchedule.parse(exch_ramp, exch_strategy)
+                     if exch_ramp else None)
+        bucket_bytes = int(float(exch_bucket_mb) * 2**20)
+
+        def build(strategy, overlap):
+            return Exchanger(strategy=strategy, bucket_bytes=bucket_bytes,
+                             overlap=overlap)
+
+        # every phase's exchanger is built now, so a bad phase fails here
+        # and not at its epoch; overlap applies to the bucketed phases
+        self._ramp_exchangers = {
+            s: build(s, self.exch_overlap and s in BUCKETED_STRATEGIES)
+            for s in (self.ramp.strategies if self.ramp else ())}
+        self.exchanger = (self._ramp_exchangers.get(exch_strategy)
+                          or build(exch_strategy, self.exch_overlap))
+
+    def init_opt_state(self):
+        """The optimizer state of ``self.params``: under ``zero1`` this
+        rank's slices of the flat buckets, else the model's tree."""
+        if self.exchanger.fuses_update:
+            return self.exchanger.zero1_init_opt_state(
+                self.optimizer, self.params, self.n_workers)
+        return self.model.init_opt_state(self.optimizer, self.params)
 
     def init_state(self) -> None:
         """Fresh fp32 params and model state from a CPU generator seeded
         ``seed + 1`` (the reference's ``PRNGKey(seed + 1)``; the same
-        values whatever the device, so every rank starts alike) and the
-        params' optimizer state, on the device."""
+        values whatever the device, so every rank starts alike) and their
+        optimizer state, on the device."""
         params, state = self.model.init_params(
             torch.Generator().manual_seed(self.seed + 1))
         self.params = tree_to(params, self.device)
         self.state = tree_to(state, self.device)
-        self.opt_state = self.model.init_opt_state(self.optimizer,
-                                                   self.params)
+        self.opt_state = self.init_opt_state()
+
+    def _maybe_ramp(self, epoch: int) -> None:
+        """Activate the ramp phase of ``epoch``: swap in its exchanger
+        (built at construction) and rebuild the step closure."""
+        if self.ramp is None:
+            return
+        want = self.ramp.strategy_for_epoch(epoch)
+        if want != self.exchanger.strategy:
+            self.exchanger = self._ramp_exchangers[want]
+            self.compile_iter_fns()
 
 
 class BSP(Rule):
@@ -53,5 +88,7 @@ class BSP(Rule):
         return BSPTrainer(
             model, exch_strategy=self.config.get("exch_strategy", "psum"),
             exch_bucket_mb=self.config.get("exch_bucket_mb", 4.0),
+            exch_overlap=bool(self.config.get("exch_overlap", False)),
+            exch_ramp=self.config.get("exch_ramp") or None,
             device=device, recorder=recorder,
             seed=self.config.get("seed", 0))

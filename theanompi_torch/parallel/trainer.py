@@ -34,10 +34,19 @@ exchange (``ring_int8``'s rounding) draws from its own per-rank stream,
 ``EXCHANGE_RNG_TAG``).  Device syncs happen only at print boundaries and
 in validation.  Only rank 0 prints and saves the recorder.
 
+Under ``zero1`` (``exchanger.fuses_update``) the exchange is the update
+(:170-178): :meth:`Exchanger.exchange_and_update` takes the grads, the
+optimizer state and the params.  With ``exchanger.overlap`` at a world
+above 1, backward runs hooked (:class:`BucketExchange`): each bucket's
+collective goes out from backward as its grads come in, and the exchange
+waits on them.  ``_run_epochs`` calls :meth:`BaseTrainer._maybe_ramp` at
+the top of each epoch (:1164-1167), where BSP swaps its exchanger by
+``exch_ramp``.
+
 Not carried by this slice, and refused rather than ignored: checkpoints
 and resume, telemetry, the resilience stack (fault plans, sentinel,
-watchdog, preemption), the profiler window, the prefetcher, the
-exchange's overlap and ramp, and sharded meshes (:data:`NOT_PORTED_KEYS`).
+watchdog, preemption), the profiler window, the prefetcher and sharded
+meshes (:data:`NOT_PORTED_KEYS`).
 """
 
 from __future__ import annotations
@@ -48,7 +57,11 @@ import torch
 
 from theanompi_torch import dist as tdist
 from theanompi_torch.models.data.base import derive_seed
-from theanompi_torch.parallel.exchanger import fused_pmean
+from theanompi_torch.parallel.exchanger import (
+    BucketExchange,
+    flatten,
+    fused_pmean,
+)
 from theanompi_torch.parallel.mesh import resolve_device
 from theanompi_torch.tree import tree_leaves_with_path, tree_map
 from theanompi_torch.utils.helper_funcs import import_model, to_device
@@ -66,7 +79,7 @@ NOT_PORTED_KEYS = (
     "sentinel_max_skips", "sentinel_max_rollbacks", "watchdog",
     "watchdog_multiple", "watchdog_min_s", "watchdog_poll_s",
     "heartbeat_path", "handle_preemption", "prefetch_stall_timeout",
-    "exch_overlap", "exch_ramp", "n_model", "n_seq", "n_pipe")
+    "n_model", "n_seq", "n_pipe")
 
 
 def _leaves(tree) -> list:
@@ -87,18 +100,23 @@ def _dropout_gen(device, seed: int, *key):
     return gen
 
 
-def loss_and_grads(model, params, state, batch, gen):
+def loss_and_grads(model, params, state, batch, gen, hooks=None):
     """-> (new_state, metrics, grads) of one forward + backward
-    (``train=True``; ``gen`` the dropout generator or None)."""
+    (``train=True``; ``gen`` the dropout generator or None).  ``hooks``: a
+    :class:`BucketExchange` to arm on the differentiated leaves, so the
+    exchange's collectives go out from backward."""
     leaves = [p.detach().requires_grad_() for p in _leaves(params)]
-    loss, (new_state, metrics) = model.loss_fn(
-        _unflatten(params, leaves), state, batch, gen, train=True)
+    tree = _unflatten(params, leaves)
+    if hooks is not None:
+        hooks.arm(flatten(tree))
+    loss, (new_state, metrics) = model.loss_fn(tree, state, batch, gen,
+                                               train=True)
     return (new_state, metrics,
             _unflatten(params, torch.autograd.grad(loss, leaves)))
 
 
 def _accumulated_grads(model, params, state, batch, seed, step, device,
-                       n_subb):
+                       n_subb, hooks=None):
     """Micro-batched forward + backward: -> (new_state, metrics, mean
     grads).  The batch splits into ``n_subb`` equal micro-batches;
     activations live for one micro-batch at a time, the grads sum into one
@@ -106,7 +124,8 @@ def _accumulated_grads(model, params, state, batch, seed, step, device,
     order (BatchNorm's statistics are per micro-batch, as in the
     reference).  Float metrics come back averaged; perplexity is
     re-derived from the averaged cost (a mean of exps would be biased
-    high)."""
+    high).  ``hooks`` are armed for the last micro-batch, given the sum
+    of the earlier ones."""
     n = {x.shape[0] for x in batch.values()}
     if any(b % n_subb for b in n):
         raise ValueError(f"n_subb={n_subb} must divide the per-worker batch "
@@ -116,7 +135,10 @@ def _accumulated_grads(model, params, state, batch, seed, step, device,
         mb = {k: x.reshape(n_subb, x.shape[0] // n_subb, *x.shape[1:])[i]
               for k, x in batch.items()}
         gen = _dropout_gen(device, seed, step, i)
-        state, m, g = loss_and_grads(model, params, state, mb, gen)
+        last = hooks if i == n_subb - 1 else None
+        if last is not None:
+            last.accumulate(gsum, n_subb)
+        state, m, g = loss_and_grads(model, params, state, mb, gen, last)
         gsum = g if gsum is None else tree_map(torch.add, gsum, g)
         for k, v in m.items():
             msum[k] = v if k not in msum else msum[k] + v
@@ -130,26 +152,35 @@ def _accumulated_grads(model, params, state, batch, seed, step, device,
 def make_train_step(model, optimizer, exchanger, seed: int, device):
     """The per-step function: ``step(params, state, opt_state, batch, lr,
     step) -> (new_params, new_state, new_opt_state, metrics)`` — loss and
-    backward (over ``n_subb`` micro-batches when the model config asks),
-    the exchange, the optimizer update under ``torch.no_grad``, then the
-    float metrics and the new model state averaged over the ranks (one
-    collective a dtype; already equal under sync-BN, the mean repairs
-    drift otherwise)."""
+    backward (over ``n_subb`` micro-batches when the model config asks;
+    hooked, under ``exchanger.overlap``, so the buckets' collectives go out
+    from backward), the exchange and the optimizer update (one call under
+    ``zero1``) under ``torch.no_grad``, then the float metrics and the new
+    model state averaged over the ranks (one collective a dtype; already
+    equal under sync-BN, the mean repairs drift otherwise)."""
     n_subb = int(model.config.get("n_subb", 1) or 1)
 
     def train_step(params, state, opt_state, batch, lr, step):
+        xseed = derive_seed("exchange", seed, step, *tdist.replica_key())
+        hooks = (BucketExchange(exchanger, params, xseed, reverse=True)
+                 if exchanger.overlap and tdist.world() > 1 else None)
         if n_subb == 1:
             gen = _dropout_gen(device, seed, step)
             new_state, metrics, grads = loss_and_grads(model, params, state,
-                                                       batch, gen)
+                                                       batch, gen, hooks)
         else:
             new_state, metrics, grads = _accumulated_grads(
-                model, params, state, batch, seed, step, device, n_subb)
-        grads = exchanger.exchange(grads, seed=derive_seed(
-            "exchange", seed, step, *tdist.replica_key()))
+                model, params, state, batch, seed, step, device, n_subb,
+                hooks)
         with torch.no_grad():
-            new_params, new_opt_state = optimizer.update(
-                grads, opt_state, params, lr)
+            if exchanger.fuses_update:
+                new_params, new_opt_state = exchanger.exchange_and_update(
+                    grads, opt_state, params, lr, optimizer, seed=xseed,
+                    inflight=hooks)
+            else:
+                grads = exchanger.exchange(grads, seed=xseed, inflight=hooks)
+                new_params, new_opt_state = optimizer.update(
+                    grads, opt_state, params, lr)
             metrics = fused_pmean(metrics)
             new_state = fused_pmean(new_state)
         return new_params, new_state, new_opt_state, metrics
@@ -182,6 +213,10 @@ class BaseTrainer:
     # -- rule surface ---------------------------------------------------------
     def init_state(self) -> None:
         raise NotImplementedError
+
+    def _maybe_ramp(self, epoch: int) -> None:
+        """Epoch-boundary hook, called at the top of each epoch (BSP swaps
+        its exchanger by ``exch_ramp`` here)."""
 
     def compile_iter_fns(self) -> None:
         """Build the step closure around the rule's exchanger."""
@@ -251,6 +286,7 @@ class BaseTrainer:
         model = self.model
         for epoch in range(self.epoch, model.n_epochs):
             self.epoch = epoch
+            self._maybe_ramp(epoch)
             self.recorder.start_epoch()
             lr = model.adjust_hyperp(epoch)
             it = iter(self.train_batches(epoch))
@@ -312,9 +348,9 @@ class Rule:
         if unported:
             raise NotImplementedError(
                 f"rule keys {unported} not yet ported (ROADMAP queue 1: "
-                f"exch_overlap and exch_ramp item 10, checkpoints item 8, "
-                f"the prefetcher item 6, the resilience stack item 14, "
-                f"telemetry item 15, sharded meshes item 13)")
+                f"checkpoints item 8, the prefetcher item 6, the "
+                f"resilience stack item 14, telemetry item 15, sharded "
+                f"meshes item 13)")
         n = tdist.world()
         if devices is not None and devices != n:
             raise ValueError(

@@ -1,9 +1,13 @@
-"""Param trees: nested dicts of tensors, walked without JAX's pytrees.
+"""Param trees: nested dicts (and lists) of tensors, walked without JAX's
+pytrees.
 
 The port keeps the reference's param layout — a nested ``dict`` keyed by
 the reference's layer names, leaves ``torch.Tensor`` (or an int8
 ``QuantizedTensor``) — so converted checkpoints, the int8 tree transform
-and the precision policy all address leaves by the same paths.
+and the precision policy all address leaves by the same paths.  Lists are
+nodes too, walked in order with their indices in the path: ``zero1``'s
+optimizer state is the reference's list of flat buckets (``{"velocity":
+[buf, ...]}``).
 """
 
 from __future__ import annotations
@@ -12,20 +16,28 @@ from typing import Any, Callable
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """Apply ``fn`` to every non-dict leaf (and the leaves at the same
-    paths of ``rest``, trees of the same structure); dicts are rebuilt in
-    ``tree``'s order."""
+    """Apply ``fn`` to every leaf (and the leaves at the same paths of
+    ``rest``, trees of the same structure); dicts are rebuilt in
+    ``tree``'s order, lists in theirs."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
+def _children(tree: Any):
+    return tree.items() if isinstance(tree, dict) else enumerate(tree)
+
+
 def tree_leaves_with_path(tree: Any, prefix: tuple = ()) -> list:
-    """-> ``[(path tuple of keys, leaf), ...]`` in insertion order."""
-    if isinstance(tree, dict):
+    """-> ``[(path tuple of keys and list indices, leaf), ...]`` in
+    insertion order."""
+    if isinstance(tree, (dict, list)):
         out = []
-        for k, v in tree.items():
+        for k, v in _children(tree):
             out.extend(tree_leaves_with_path(v, prefix + (k,)))
         return out
     return [(prefix, tree)]
@@ -36,6 +48,9 @@ def tree_map_with_path(fn: Callable, tree: Any, prefix: tuple = ()) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map_with_path(fn, v, prefix + (k,))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map_with_path(fn, v, prefix + (i,))
+                for i, v in enumerate(tree)]
     return fn(prefix, tree)
 
 
