@@ -78,9 +78,10 @@ Phases (any failure exits non-zero and prints no result line):
    in bf16 and fp32 (fp32 at batch 128 if 256 does not fit).  Each step's
    loss must be finite, the first batch's loss (batch statistics) after
    the last step below its loss at step 1, every BN's running mean off
-   zero, and none of the five kernels launched.  Printed: step ms p50 (the
-   recorder's ``calc``, which ends in a sync), images/s, the host data
-   plane's ``wait`` p50 beside it, the analytic-FLOPs utilization
+   zero, and none of the five kernels launched.  The batches come inline
+   (``prefetch=0``; phase 7 runs the other feeds).  Printed: step ms p50
+   (the recorder's ``calc``, which ends in a sync), images/s, the host
+   data plane's ``wait`` p50 beside it, the analytic-FLOPs utilization
    estimate, peak memory, and one more step traced by ``torch.profiler``
    (busy against wall, the kernel groups, the BN forwards' and the
    optimizer's device time).  Then one fp32 step at batch 8 on the card
@@ -122,7 +123,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``zero1`` is held against the one-process run within the limits above
    (ResNet-50 only so: cuDNN's backward is not bit-reproducible).  On
    every run: the ranks' losses equal and finite, their params bit-equal
-   after every step, each flash kernel launched ``8 x 4`` times on every
+   after every step, each rank's batches placed on its own card (by the
+   trainer's prefetcher), each flash kernel launched ``8 x 4`` times on every
    rank by the transformer (counts zeroed just before the steps and read
    just after) and none by ResNet-50, and under ``zero1`` each rank's
    optimizer state 1/N of ``psum_bucket``'s bytes (both printed).
@@ -131,18 +133,41 @@ Phases (any failure exits non-zero and prints no result line):
    card shared by two ranks with the all-reduce staged through the host,
    not a speed figure.
 
+7. **The data plane.** The native crop (``theanompi_torch.native``,
+   built from ``augment.c`` with ``cc``) must load.  ResNet-50 at phase
+   5's config in bf16 (batch 256, 8 steps) through ``BSP(...).init`` and
+   ``.wait()`` three times: rule key ``prefetch=0`` with
+   ``loader_workers=0`` (inline), ``prefetch=2`` with
+   ``loader_workers=0`` (the prefetch thread makes the shards), and
+   ``prefetch=2`` with ``loader_workers=W``, W = min(8, cpu_count - 2)
+   spawned loader processes; each prints step p50 (``calc``), ``wait``
+   p50 and the run's pace, images/s over the steps' wall time with the
+   waits, beside ``os.cpu_count()``, and its losses must be finite and
+   equal across the three.  The pooled, prefetched stream's first 3
+   batches, copied back from the card, must be bit-equal to the inline
+   stream's; one step on a pooled, prefetched batch is traced with
+   ``torch.profiler``, and the trace must show the image batch's
+   host-to-device copy from pinned memory on a stream other than the one
+   the step's kernels run on.  Then the transformer of phase 4 in bf16 on
+   ``dataset="stream"`` (two synthetic sources of 2**22 tokens), 4 steps
+   and no validation batch, at ``prefetch=2`` and at ``prefetch=0``: the
+   params' 64-bit checksums, the losses and the stream's cursors must be
+   equal, and each flash kernel launched ``8 x 4`` times in each run.
+
 ``python3 chip_smoke.py --decode`` runs phase 1 and kernels 4 and 5 of
 phase 2 only, and prints no result line; ``--conv`` runs phases 1 and 5
-only, and ``--bsp`` phases 1 and 6 only, neither printing a result line.
+only, ``--bsp`` phases 1 and 6 only and ``--data`` phases 1 and 7 only,
+none of them printing a result line.
 
 Output: the ``nvidia-smi`` line, one line per check, the serve reports,
-the training lines, the conv-net lines, the multi-rank lines, then
-``{"kernels": [...]}`` (each kernel's ``launches_by_path``: the serving
-runs, the one-process training run and the multi-rank bf16 transformer
-runs summed over their ranks, ``train_bsp2_bf16`` under ``psum_bucket``
-and its ``_overlap``, ``_zero1`` and ``_zero1_overlap`` twins) and,
-last, ``{"ok": true, "device": {...}}``.  fp32 products run without TF32
-throughout.
+the training lines, the conv-net lines, the multi-rank lines, the data
+plane's lines, then ``{"kernels": [...]}`` (each kernel's
+``launches_by_path``: the serving runs, the one-process training run,
+the stream-fed training run at ``prefetch=2`` (``train_stream_bf16``)
+and the multi-rank bf16 transformer runs summed over their ranks,
+``train_bsp2_bf16`` under ``psum_bucket`` and its ``_overlap``,
+``_zero1`` and ``_zero1_overlap`` twins) and, last, ``{"ok": true,
+"device": {...}}``.  fp32 products run without TF32 throughout.
 """
 
 from __future__ import annotations
@@ -1206,7 +1231,11 @@ def conv_run(torch, precision, smi, batch, kernels):
     cfg = {**CONV_CFG, "precision": precision, "batch_size": batch,
            "shard_size": batch, "n_train": CONV_STEPS * batch,
            "n_val": batch}
-    rule = BSP({"print_freq": 1, "seed": 0, "verbose": False}).init(
+    # inline feed, as phase 5 ran before the prefetcher: its step time
+    # stays comparable (a prefetch thread making the shards in this
+    # process slows the host's dispatch); phase 7 measures the feeds
+    rule = BSP({"print_freq": 1, "seed": 0, "verbose": False,
+                "prefetch": 0}).init(
         devices=1, modelfile="theanompi_torch.models.resnet50",
         modelclass="ResNet50", model_config=cfg)
     tr = rule.trainer
@@ -1690,6 +1719,10 @@ def bsp_phase(torch, smi, kernels):
               f"bsp {name}: the ranks' metrics differ")
         check(all(r["digests"] == res[0]["digests"] for r in res),
               f"bsp {name}: the ranks' params differ after a step")
+        check(all(r["batch_devices"] == [r["device"]] for r in res),
+              f"bsp {name}: batches arrived on "
+              f"{[r['batch_devices'] for r in res]}, not on the ranks' cards "
+              f"{[r['device'] for r in res]}")
         if strategy == "zero1":
             ratio = res[0]["opt_state_bytes"] * n / base[0]["opt_state_bytes"]
             check(abs(ratio - 1) < 1e-3, f"bsp {name}: optimizer state a "
@@ -1714,6 +1747,224 @@ def bsp_phase(torch, smi, kernels):
                   f"bsp {name}: launched {launches}")
     shutil.rmtree(tmp, ignore_errors=True)
     return launches_by_path
+
+
+# -- phase 7: the data plane --------------------------------------------------
+
+#: ResNet-50 at phase 5's config in bf16, fed three ways: (rule key
+#: ``prefetch``, model key ``loader_workers``; None: :func:`data_workers`)
+DATA_FEEDS = ((0, 0), (2, 0), (2, None))
+#: the pooled, prefetched stream's first batches held against the inline
+DATA_EQUAL_BATCHES = 3
+#: the transformer of phase 4 on the token stream: two synthetic sources of
+#: 2**22 tokens (2047 windows each, none read twice), 4 steps, no
+#: validation batch (so each flash kernel launches 8 layers x 4 steps)
+DATA_STREAM_STEPS = 4
+DATA_STREAM_CFG = {
+    **TRAIN_CFG, "precision": "bf16", "dataset": "stream",
+    "n_train": DATA_STREAM_STEPS * TRAIN_CFG["batch_size"], "n_val": 0,
+    "stream_sources": [
+        {"name": "syn-a", "weight": 0.75, "tokens": 2 ** 22,
+         "vocab": TRAIN_CFG["vocab"], "seed": 11},
+        {"name": "syn-b", "weight": 0.25, "tokens": 2 ** 22,
+         "vocab": TRAIN_CFG["vocab"], "seed": 13}]}
+
+
+def data_workers() -> int:
+    """The loader pool's size: the host's cores less two (the training
+    thread and the prefetch thread), at most 8."""
+    return max(1, min(8, (os.cpu_count() or 1) - 2))
+
+
+def data_conv_run(torch, smi, prefetch, workers, kernels):
+    """ResNet-50 (phase 5's config, bf16) through ``BSP(...).init`` and
+    ``.wait()`` at rule key ``prefetch`` and model key
+    ``loader_workers``.  -> (the trainer, the printed numbers)."""
+    import statistics
+
+    from theanompi_torch import BSP
+
+    cfg = {**CONV_CFG, "precision": "bf16", "loader_workers": workers}
+    rule = BSP({"print_freq": 1, "seed": 0, "verbose": False,
+                "prefetch": prefetch, "prefetch_stall_timeout": 600}).init(
+        devices=1, modelfile="theanompi_torch.models.resnet50",
+        modelclass="ResNet50", model_config=cfg)
+    for k in kernels:
+        k.launches = 0
+    rec = rule.wait()
+    torch.cuda.synchronize()
+    losses = rec.train_history["cost"]
+    calc, wait = rec.time_history["calc"], rec.time_history["wait"]
+    steps_s = [c + w for c, w in zip(calc, wait)]
+    b = CONV_CFG["batch_size"]
+    out = {"step_ms_p50": statistics.median(calc) * 1e3,
+           "wait_ms_p50": statistics.median(wait) * 1e3,
+           "images_per_s": b * len(steps_s) / sum(steps_s),
+           "images_per_s_after_step_1": b * (len(steps_s) - 1)
+           / sum(steps_s[1:])}
+    print(f"data conv[bf16] {smi} cpu_count={os.cpu_count()}: prefetch="
+          f"{prefetch} loader_workers={workers}: step_ms p50 "
+          f"{out['step_ms_p50']:.3f}, wait_ms p50 {out['wait_ms_p50']:.3f}, "
+          f"images/s over the steps' wall time, waits included "
+          f"{out['images_per_s']:.1f} (after step 1: "
+          f"{out['images_per_s_after_step_1']:.1f}); wait_ms "
+          f"{[round(x * 1e3, 3) for x in wait]} step_ms "
+          f"{[round(x * 1e3, 3) for x in calc]} losses {losses}",
+          flush=True)
+    check(len(losses) == CONV_STEPS and all(
+        x == x and abs(x) != float("inf") for x in losses),
+        f"data conv[prefetch={prefetch}, workers={workers}]: losses "
+        f"{losses}")
+    check(not any(k.launches for k in kernels), "data conv: the conv-net "
+          "path launched a kernel")
+    return rule.trainer, out
+
+
+def data_equal_and_traced(torch, smi, trainer, workers):
+    """The pooled, prefetched stream's first batches, copied back to the
+    host, against the inline stream; then one step on a pooled batch
+    under ``torch.profiler``, whose trace must show the image batch's
+    copy from pinned memory on a stream the step's kernels do not use."""
+    import collections
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from theanompi_torch.models.data.imagenet import ImageNetData
+    from theanompi_torch.models.data.prefetch import Prefetcher
+
+    b = CONV_CFG["batch_size"]
+    inline = ImageNetData(dict(CONV_CFG))
+    pooled = ImageNetData({**CONV_CFG, "loader_workers": workers})
+    tmp = tempfile.mkdtemp(prefix="data-")
+    try:
+        pf = Prefetcher(pooled.train_batches(b, 0, seed=0),
+                        device=trainer.device, depth=2, stall_timeout=600)
+        try:
+            got = [{k: t.cpu().numpy() for k, t in next(pf).items()}
+                   for _ in range(DATA_EQUAL_BATCHES)]
+        finally:
+            pf.close()
+        want = list(itertools.islice(inline.train_batches(b, 0, seed=0),
+                                     DATA_EQUAL_BATCHES))
+        same = all(g["x"].dtype == np.uint8 and all(
+            np.array_equal(g[k], w[k]) for k in ("x", "y"))
+            for g, w in zip(got, want))
+        print(f"data: the first {DATA_EQUAL_BATCHES} batches of the pooled "
+              f"({workers} workers), prefetched stream, copied back from "
+              f"the card, bit-equal to the inline stream: {same}",
+              flush=True)
+        check(same, "data: the pooled, prefetched batches differ from the "
+              "inline ones")
+        lr = trainer.model.adjust_hyperp(0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pf = Prefetcher(pooled.train_batches(b, 1, seed=0),
+                            device=trainer.device, depth=2,
+                            stall_timeout=600)
+            try:
+                trainer.train_iter(next(pf), lr)
+                torch.cuda.synchronize()
+            finally:
+                pf.close()
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        pooled.cleanup()
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels = collections.Counter(
+        e.get("args", {}).get("stream") for e in events
+        if e.get("cat") == "kernel")
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    x_bytes = b * CONV_CFG["image_size"] ** 2 * 3
+    if not kernels:
+        print("data: the profiler saw no device activity (the pinned "
+              "side-stream copy not measured)", flush=True)
+        check(False, "data: no device trace of the prefetched step")
+    compute = kernels.most_common(1)[0][0]
+    image = [e for e in copies if e.get("args", {}).get("bytes") == x_bytes]
+    print(f"data: traced step: compute stream {compute} ({kernels[compute]} "
+          f"kernels); host-to-device copies "
+          + "; ".join(f"{e['name']} {e['args'].get('bytes')} B on stream "
+                      f"{e['args'].get('stream')}, {e.get('dur')} us"
+                      for e in copies), flush=True)
+    check(any("Pinned" in e["name"] and e["args"].get("stream") != compute
+              for e in image), "data: the image batch's copy is not from "
+          "pinned memory on a side stream")
+
+
+def data_stream_run(torch, smi, prefetch, kernels):
+    """The transformer on the token stream, 4 steps at rule key
+    ``prefetch``, the kernels' counts zeroed just before and read just
+    after.  -> (the params' checksum after the run, the losses, the
+    launches, the stream's cursors)."""
+    from theanompi_torch import BSP
+    from theanompi_torch.parallel.rank_jobs import digest
+
+    rule = BSP({"print_freq": 1, "seed": 0, "verbose": False,
+                "prefetch": prefetch, "prefetch_stall_timeout": 600}).init(
+        devices=1, modelfile="theanompi_torch.models.transformer_lm",
+        modelclass="TransformerLM", model_config=dict(DATA_STREAM_CFG))
+    tr = rule.trainer
+    check(type(tr.model.data).__name__ == "StreamTokenDataset",
+          "data stream: the model is not on the token stream")
+    for k in kernels:
+        k.launches = 0
+    rec = rule.wait()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    out = (digest(tr.params), rec.train_history["cost"], launches,
+           tr.model.data.state()["cursors"])
+    del rule, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def data_phase(torch, smi, kernels):
+    """Phase 7: ResNet-50 fed inline, prefetched, and prefetched from the
+    loader pool; the pooled stream against the inline one and the traced
+    side-stream copy; the transformer on the token stream at prefetch 2
+    against prefetch 0.  -> the stream run's launches."""
+    import gc
+
+    from theanompi_torch import native
+
+    workers = data_workers()
+    check(native.available(), "data: the native crop did not build")
+    print(f"data: native crop built ({native._SO}); cpu_count "
+          f"{os.cpu_count()}, loader pool {workers} workers", flush=True)
+    for prefetch, w in DATA_FEEDS:
+        trainer = None  # one ResNet-50 on the card at a time
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer, _ = data_conv_run(torch, smi, prefetch,
+                                   workers if w is None else w, kernels)
+    data_equal_and_traced(torch, smi, trainer, workers)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {p: data_stream_run(torch, smi, p, kernels) for p in (2, 0)}
+    (d2, l2, n2, c2), (d0, l0, n0, c0) = runs[2], runs[0]
+    print(f"data stream[bf16] {smi}: TransformerLM on the token stream, "
+          f"{DATA_STREAM_STEPS} steps; prefetch 2 losses {l2} params "
+          f"checksum {d2}; prefetch 0 losses {l0} checksum {d0}; bit-equal "
+          f"{d2 == d0 and l2 == l0}; cursors after the epoch {c2}; "
+          f"launches {n2}", flush=True)
+    check(d2 == d0 and l2 == l0 and c2 == c0, "data stream: prefetch 2 and "
+          "prefetch 0 trained different params")
+    check(len(l2) == DATA_STREAM_STEPS and all(
+        x == x and abs(x) != float("inf") for x in l2),
+        f"data stream: losses {l2}")
+    want = 8 * DATA_STREAM_STEPS
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(n2[name] == n0[name] == want, f"data stream: {name} launched "
+              f"{n2[name]} / {n0[name]} times, expected {want}")
+    return n2
 
 
 def main() -> int:
@@ -1771,6 +2022,10 @@ def main() -> int:
         # development run: phase 6 only, no result line
         bsp_phase(torch, smi, K.KERNELS)
         return 0
+    if "--data" in sys.argv[1:]:
+        # development run: phase 7 only, no result line
+        data_phase(torch, smi, K.KERNELS)
+        return 0
     if "--decode" in sys.argv[1:]:
         # development run: kernels 4 and 5 only, no result line
         checks = {"paged_decode": check_paged(torch),
@@ -1818,6 +2073,8 @@ def main() -> int:
     conv_phase(torch, smi, K.KERNELS)
     # -- phase 6 -----------------------------------------------------------
     bsp_launches = bsp_phase(torch, smi, K.KERNELS)
+    # -- phase 7 -----------------------------------------------------------
+    stream_launches = data_phase(torch, smi, K.KERNELS)
 
     # the serving slice's kernels report their serve run; the flash
     # kernels the training run, which launches all three
@@ -1826,6 +2083,7 @@ def main() -> int:
     by_path = {k.name: {"serve_bf16": runs[("bf16", False)][0][k.name],
                         "serve_bf16_int8": runs[("bf16", True)][0][k.name],
                         "train_bf16": train_launches[k.name],
+                        "train_stream_bf16": stream_launches[k.name],
                         **{path: got[k.name]
                            for path, got in bsp_launches.items()}}
                for k in K.KERNELS}

@@ -5,8 +5,9 @@
 reference's (``theanompi_tpu.models.data``) for train epochs 0 and 1,
 for validation, and from a ``start_batch`` cursor; the reference's crop
 may run in its C helper, the port's in the numpy loop, and the bytes must
-still agree.  ``to_device`` keeps uint8 images as uint8.  What the port
-does not carry yet raises.
+still agree.  ``to_device`` keeps uint8 images as uint8.  The loader
+pool's config builds without spawning, and the hickle converter raises
+without hickle.
 """
 
 import numpy as np
@@ -108,10 +109,15 @@ def test_to_device_keeps_uint8_images():
     assert out["f"].dtype == torch.float32
 
 
-def test_what_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        I.ImageNetData({**IMAGENET, "loader_workers": 2})
-    with pytest.raises(NotImplementedError, match="item 6"):
+def test_what_is_not_ported_raises(monkeypatch):
+    # the loader pool is ported: the config builds, and spawns nothing
+    # before the first training epoch
+    data = I.ImageNetData({**IMAGENET, "loader_workers": 2})
+    assert data.loader_workers == 2 and data._shm_pool is None
+    # the hickle converter is ported; without hickle it raises, as the
+    # reference's does
+    monkeypatch.setitem(__import__("sys").modules, "hickle", None)
+    with pytest.raises(ImportError, match="hickle"):
         I.convert_hkl_tree("a", "b")
 
 

@@ -13,8 +13,8 @@ after one SGD step and the loss after three steps, for
 Also: ``n_subb=2`` equals the full batch; ``BSP().init(...)`` on
 ``device="cpu"`` trains 2 epochs through ``.wait()`` and validates below
 its first train loss; the default configs agree; unported rule keys
-raise, and the exchange's ``zero1``, overlap and ramp keys are not among
-them.
+raise, and the exchange's ``zero1``, overlap and ramp keys, the
+prefetcher's and the token stream are not among them.
 
 Tolerance: rtol 1e-5 / atol 1e-6 in fp32 unless a reason is written.
 """
@@ -179,14 +179,19 @@ def test_bsp_trains_two_epochs_on_cpu_through_wait():
 def test_rule_refuses_what_it_does_not_carry():
     cfg = {**TINY, "vocab": 64}
     for key in ("checkpoint_dir", "telemetry_dir", "fault_plan",
-                "profile_dir", "prefetch"):
+                "profile_dir"):
         assert key in NOT_PORTED_KEYS
         with pytest.raises(NotImplementedError, match="not yet ported"):
             BSP({key: "x"}).init(devices=1, model_config=cfg, device="cpu")
-    # the exchange's sharded update, overlap and ramp are carried: their
-    # keys reach the trainer, which refuses only what the reference does
-    for key in ("exch_overlap", "exch_ramp"):
+    # the exchange's sharded update, overlap and ramp, and the
+    # prefetcher, are carried: their keys reach the trainer, which refuses
+    # only what the reference does
+    for key in ("exch_overlap", "exch_ramp", "prefetch",
+                "prefetch_stall_timeout"):
         assert key not in NOT_PORTED_KEYS
+    tr = BSP({"prefetch": 3, "prefetch_stall_timeout": 9}).init(
+        devices=1, model_config=cfg, device="cpu").trainer
+    assert (tr.prefetch_depth, tr.prefetch_stall_timeout) == (3, 9.0)
     rule = BSP({"exch_strategy": "zero1"}).init(devices=1, model_config=cfg,
                                                 device="cpu")
     assert rule.trainer.exchanger.fuses_update
@@ -196,8 +201,9 @@ def test_rule_refuses_what_it_does_not_carry():
     with pytest.raises(ValueError, match="zero1"):
         BSP({"exch_strategy": "zero1", "exch_ramp": "ring_int8:1"}).init(
             devices=1, model_config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="stream"):
-        TransformerLM({**cfg, "dataset": "stream"}).data
+    # the token stream is carried too
+    assert type(TransformerLM({**cfg, "dataset": "stream"}).data
+                ).__name__ == "StreamTokenDataset"
 
 
 def test_default_configs_agree_on_every_key_the_port_reads():

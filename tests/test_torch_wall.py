@@ -3,10 +3,13 @@ default.
 
 - a fresh interpreter imports the port's serving and training stacks
   (the BSP rule, the launcher, the losses, the conv nets and their data
-  planes, the process groups and the ranks' jobs) and ``chip_smoke.py``
+  planes, the process groups and the ranks' jobs, the native crop, the
+  prefetcher, the loader pool and the token stream) and ``chip_smoke.py``
   (as a module) without ``jax`` or ``theanompi_tpu`` ever entering
   ``sys.modules`` (the spawned ranks' own modules are checked by
   ``test_torch_exchanger.py`` and ``test_torch_bsp_multirank.py``);
+- a spawned process that runs the loader pool's worker on a shard
+  imports neither, nor ``torch``;
 - no file of ``theanompi_torch/`` (nor ``chip_smoke.py``) imports either;
 - entry points called without ``device`` on a machine with no CUDA raise
   instead of running on the CPU (the launcher exits non-zero), and the
@@ -52,6 +55,11 @@ def test_import_wall_in_a_fresh_interpreter():
         "import theanompi_torch.models.data.cifar10\n"
         "import theanompi_torch.dist, theanompi_torch.parallel.rank_jobs\n"
         "import theanompi_torch.parallel.overlap\n"
+        "import theanompi_torch.native\n"
+        "import theanompi_torch.models.data.prefetch\n"
+        "import theanompi_torch.models.data.shm_loader\n"
+        "import theanompi_torch.models.data.stream\n"
+        "assert theanompi_torch.native.available()\n"
         "from theanompi_torch import BSP\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -62,6 +70,52 @@ def test_import_wall_in_a_fresh_interpreter():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert json.loads(r.stdout.strip().splitlines()[-1]) == []
+
+
+_POOL_PROBE = """
+import json, multiprocessing as mp, queue, sys
+
+
+def child(out_q):
+    from multiprocessing import shared_memory
+
+    from theanompi_torch.models.data import shm_loader
+    from theanompi_torch.models.data.imagenet import _SyntheticShards
+
+    nbytes = 4 * 8 * 8 * 3
+    shm = shared_memory.SharedMemory(create=True, size=nbytes)
+    tasks, results = queue.Queue(), queue.Queue()
+    tasks.put((0, _SyntheticShards(4, 3, 12, 4, 1).spec(0), 5, 0))
+    tasks.put(None)
+    shm_loader._worker(tasks, results, shm.name, nbytes, 8)
+    _, _, shape, dtype, _ = results.get(timeout=5)
+    shm.close()
+    shm.unlink()
+    out_q.put([list(shape), dtype, sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "theanompi_tpu", "torch"))])
+
+
+if __name__ == "__main__":
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    p = ctx.Process(target=child, args=(q,))
+    p.start()
+    print(json.dumps(q.get(timeout=60)))
+    p.join(30)
+"""
+
+
+def test_spawned_pool_worker_imports_no_jax_and_no_torch(tmp_path):
+    script = tmp_path / "probe.py"
+    script.write_text(_POOL_PROBE)
+    env = {**os.environ, "PYTHONPATH": REPO}
+    r = subprocess.run([sys.executable, str(script)], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    shape, dtype, bad = json.loads(r.stdout.strip().splitlines()[-1])
+    assert (shape, dtype) == ([4, 8, 8, 3], "uint8")
+    assert bad == []
 
 
 def test_static_scan_finds_no_forbidden_import():

@@ -25,6 +25,12 @@ the Wide-ResNet, through the same rule:
   :mod:`theanompi_torch.models.wide_resnet` — the conv nets, on
   :mod:`theanompi_torch.models.data.imagenet` and
   :mod:`theanompi_torch.models.data.cifar10`;
+- the data plane: the trainer's prefetcher
+  (:mod:`theanompi_torch.models.data.prefetch`, pinned copies on a side
+  stream), the shared-memory loader pool
+  (:mod:`theanompi_torch.models.data.shm_loader`), the C crop
+  (:mod:`theanompi_torch.native`) and the mixture token stream
+  (:mod:`theanompi_torch.models.data.stream`);
 - :mod:`theanompi_torch.ops.losses`, :mod:`theanompi_torch.ops.opt` — the
   fused chunked LM cross entropy, SGD;
 - :mod:`theanompi_torch.parallel.bsp` — the BSP rule and its trainer, and

@@ -170,7 +170,9 @@ def spawn(fn, n: int, backend: str, device, args: tuple = (),
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=_child, daemon=True,
+    # not daemonic: a rank may start processes of its own (the loader
+    # pool); the ``finally`` below ends every rank whatever happens
+    procs = [ctx.Process(target=_child, daemon=False,
                          args=(fn, r, n, port, backend, device, args,
                                results))
              for r in range(n)]

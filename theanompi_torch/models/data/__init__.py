@@ -1,2 +1,2 @@
-"""Data planes of the port (numpy only; batches move to the device in the
-trainer)."""
+"""Data planes of the port: numpy only, apart from the prefetcher
+(:mod:`.prefetch`), which places the batches on the trainer's device."""

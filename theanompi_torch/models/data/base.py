@@ -7,7 +7,8 @@ Counterpart of ``theanompi_tpu/models/data/base.py`` (``derive_seed`` :27,
 reference's arrays bit for bit.  Iterators yield **global** batches as
 numpy dicts ``{"x": [B, ...], "y": [B, ...]}`` with constant shapes;
 ragged final batches are dropped.  The read-retry plane's telemetry and
-fault-injection hooks, and the prefetcher, come with later slices.
+fault-injection hooks come with later slices; the trainer's prefetcher
+is :mod:`theanompi_torch.models.data.prefetch`.
 """
 
 from __future__ import annotations
@@ -68,7 +69,8 @@ class Dataset:
     each of those batches, the share of one data-parallel rank; a dataset
     builds only what those rows need where its randomness allows.
     ``state``/``set_state`` carry any position the (epoch, cursor) pair
-    does not determine; the datasets here have none."""
+    does not determine (the token stream's cursors and weights; the
+    datasets here have none)."""
 
     n_train: int
     n_val: int

@@ -24,14 +24,20 @@ STD = np.array([0.2470, 0.2435, 0.2616], np.float32)
 def pad_crop_mirror(x: np.ndarray, rng: np.random.RandomState, pad: int = 4):
     """Random pad-crop and horizontal mirror of an NHWC batch: reflect-pad
     by ``pad``, crop back to the input size at a random offset, flip half.
-    The per-image loop is the reference's tested numpy path (its C helper
-    gives the same bytes)."""
+    The crop runs in C where :mod:`theanompi_torch.native` builds, else
+    in the numpy loop (the reference implementation); the draws come
+    first, so both give the same bytes."""
+    from theanompi_torch import native
+
     n, h, w, _ = x.shape
     padded = np.pad(x, ((0, 0), (pad, pad), (pad, pad), (0, 0)),
                     mode="reflect")
     ys = rng.randint(0, 2 * pad + 1, n)
     xs = rng.randint(0, 2 * pad + 1, n)
     flips = rng.rand(n) < 0.5
+    fast = native.crop_mirror_batch(padded, h, w, ys, xs, flips)
+    if fast is not None:
+        return fast
     out = np.empty_like(x)
     for i in range(n):
         img = padded[i, ys[i]: ys[i] + h, xs[i]: xs[i] + w]

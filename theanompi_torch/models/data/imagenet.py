@@ -3,8 +3,9 @@ batches across shard boundaries.
 
 Counterpart of ``theanompi_tpu/models/data/imagenet.py``
 (``random_crop_mirror`` :40, ``center_crop`` :61, ``write_shards`` :80,
-``_ShardSet`` :118, ``_SyntheticShards`` :162, ``ImageNetData`` :224),
-numpy only: the same config gives the reference's batches bit for bit.
+``convert_hkl_tree`` :88, ``_ShardSet`` :118, ``_SyntheticShards`` :162,
+``_load_from_spec`` :215, ``ImageNetData`` :224), numpy only: the same
+config gives the reference's batches bit for bit.
 On-disk layout under ``data_path`` (or ``$IMAGENET_PATH``)::
 
     train/x_0000.npy  uint8 [N, S, S, 3]   (S = the stored size, e.g. 256)
@@ -15,10 +16,10 @@ Without one, deterministic synthetic shards (a per-class 8x8x3 pattern
 tiled to the stored size, plus noise, generated shard by shard) run the
 same shard, augment and batch pipeline.  Batches leave as uint8 NHWC; the
 model normalizes them on the device with :attr:`ImageNetData.norm_stats`.
-
-Not ported yet, and refused rather than ignored (ROADMAP queue 1 item 6):
-``loader_workers > 0`` (the reference's shared-memory worker pool) and
-``convert_hkl_tree`` (reference-era hickle shards).
+The crop runs in C where :mod:`theanompi_torch.native` builds, and
+``loader_workers > 0`` fans the training shards out over the
+shared-memory worker ring (:mod:`theanompi_torch.models.data.shm_loader`);
+both give the inline numpy path's bytes.
 """
 
 from __future__ import annotations
@@ -40,12 +41,18 @@ STD_RGB = np.array([58.39, 57.12, 57.38], np.float32)
 
 def random_crop_mirror(x: np.ndarray, out: int, rng: np.random.RandomState):
     """Random spatial crop of an NHWC batch to ``out`` and a horizontal
-    mirror of half of it (train augmentation; the reference's numpy
-    loop, which its C helper is tested equal to)."""
+    mirror of half of it (train augmentation).  The draws come first, so
+    the C crop and the numpy loop below (the reference implementation)
+    take the same offsets and give the same bytes."""
+    from theanompi_torch import native
+
     n, h, w, _ = x.shape
     ys = rng.randint(0, h - out + 1, n)
     xs = rng.randint(0, w - out + 1, n)
     flips = rng.rand(n) < 0.5
+    fast = native.crop_mirror_batch(x, out, out, ys, xs, flips)
+    if fast is not None:
+        return fast
     res = np.empty((n, out, out, x.shape[3]), x.dtype)
     for i in range(n):
         img = x[i, ys[i]: ys[i] + out, xs[i]: xs[i] + out]
@@ -71,9 +78,25 @@ def write_shards(dirpath: str, x: np.ndarray, y: np.ndarray,
 
 
 def convert_hkl_tree(src: str, dst: str) -> None:
-    raise NotImplementedError(
-        "convert_hkl_tree: hickle shards are not ported yet (ROADMAP queue "
-        "1 item 6); write .npy shards (write_shards)")
+    """Convert a reference-era tree of hickle ``.hkl`` image shards (in
+    file-name order) into ``x_NNNN.npy`` uint8 NHWC shards under ``dst``;
+    CHW shards are transposed.  Labels are not in the tree: pair the
+    output with ``y_NNNN.npy`` files as :func:`write_shards` writes them.
+    Needs the optional ``hickle`` package, imported here, at the call."""
+    try:
+        import hickle
+    except ImportError as e:
+        raise ImportError(
+            "hickle is not installed; convert_hkl_tree needs it to read "
+            ".hkl shards. Preprocess to .npy shards directly instead "
+            "(see write_shards).") from e
+    os.makedirs(dst, exist_ok=True)
+    files = sorted(f for f in os.listdir(src) if f.endswith(".hkl"))
+    for i, f in enumerate(files):
+        arr = np.asarray(hickle.load(os.path.join(src, f)))
+        if arr.shape[1] == 3:  # CHW to HWC
+            arr = arr.transpose(0, 2, 3, 1)
+        np.save(os.path.join(dst, f"x_{i:04d}.npy"), arr.astype(np.uint8))
 
 
 class _ShardSet:
@@ -98,6 +121,10 @@ class _ShardSet:
                                 what=self.x_files[i]),
                 read_with_retry(lambda: np.load(self.y_files[i]),
                                 what=self.y_files[i]))
+
+    def spec(self, i: int):
+        """Shard ``i`` as a picklable handle for the pool's workers."""
+        return ("files", self.x_files[i], self.y_files[i])
 
 
 class _SyntheticShards:
@@ -137,6 +164,21 @@ class _SyntheticShards:
         x = np.clip(pats + noise * 24.0, 0, 255).astype(np.uint8)
         return x, y
 
+    def spec(self, i: int):
+        """Shard ``i`` as a picklable handle for the pool's workers."""
+        return ("synth", self.n, self.n_classes, self.store_size,
+                self.shard_size, self.seed, int(i))
+
+
+def _load_from_spec(spec):
+    """The (x, y) shard a :meth:`_ShardSet.spec` or
+    :meth:`_SyntheticShards.spec` handle names (in a pool worker)."""
+    if spec[0] == "files":
+        return (read_with_retry(lambda: np.load(spec[1]), what=spec[1]),
+                read_with_retry(lambda: np.load(spec[2]), what=spec[2]))
+    _, n, n_classes, store, shard, seed, i = spec
+    return _SyntheticShards(n, n_classes, store, shard, seed).load(i)
+
 
 class ImageNetData(Dataset):
     """Sharded ImageNet(-style) data with crop and mirror augmentation.
@@ -145,7 +187,9 @@ class ImageNetData(Dataset):
     (the crop, default 224), ``n_classes`` (default 1000; inferred from
     the labels on disk when not given), and for the synthetic stand-in
     ``store_size`` (default ``max(image_size + 8, 64)``), ``n_train``,
-    ``n_val`` and ``shard_size``."""
+    ``n_val`` and ``shard_size``; ``loader_workers`` (default 0, inline):
+    the number of spawned processes that load, crop and shuffle the
+    training shards (:meth:`cleanup` stops them)."""
 
     #: on-device normalization constants: (mean, 1/std) in [0, 255] RGB
     norm_stats = (MEAN_RGB, (1.0 / STD_RGB).astype(np.float32))
@@ -153,10 +197,7 @@ class ImageNetData(Dataset):
     def __init__(self, config: dict | None = None):
         config = config or {}
         self.image_size = config.get("image_size", 224)
-        if int(config.get("loader_workers", 0)) > 0:
-            raise NotImplementedError(
-                "loader_workers > 0: the shared-memory loader pool is not "
-                "ported yet (ROADMAP queue 1 item 6)")
+        self.loader_workers = int(config.get("loader_workers", 0))
         path = config.get("data_path") or os.environ.get("IMAGENET_PATH")
         if path and os.path.isdir(os.path.join(path, "train")):
             self.synthetic = False
@@ -188,12 +229,38 @@ class ImageNetData(Dataset):
         self.n_train = self._train.n
         self.n_val = self._val.n
         self.sample_shape = (self.image_size, self.image_size, 3)
+        self._shm_pool = None
+
+    def _pool(self):
+        """The worker ring, spawned at first use and kept for every epoch
+        until :meth:`cleanup`."""
+        if self._shm_pool is None:
+            from theanompi_torch.models.data.shm_loader import ShmShardPool
+
+            self._shm_pool = ShmShardPool(self.image_size,
+                                          max(self._train.lens),
+                                          self.loader_workers)
+        return self._shm_pool
+
+    def cleanup(self) -> None:
+        if self._shm_pool is not None:
+            self._shm_pool.close()
+            self._shm_pool = None
 
     def _augmented_shards(self, src, tagged, train: bool, epoch=0, seed=0):
         """Per-shard (x, y), augmented for train.  ``tagged`` is ``[(pos,
         shard index), ...]``; ``pos``, the shard's place in the epoch's
         order, keys its augmentation (``derive_seed("augment", seed,
-        epoch, pos)``), so any shard is recomputable alone."""
+        epoch, pos)``), so any shard is recomputable alone.  With
+        ``loader_workers > 0`` the training shards go to the worker ring,
+        which runs this loop's steps on the same keyed seeds and hands
+        the shards back in order."""
+        if train and self.loader_workers > 0:
+            tasks = [(src.spec(int(i)),
+                      derive_seed("augment", seed, epoch, int(pos)))
+                     for pos, i in tagged]
+            yield from self._pool().run(tasks)
+            return
         for pos, i in tagged:
             x, y = src.load(int(i))
             if train:
@@ -236,19 +303,26 @@ class ImageNetData(Dataset):
         buf_x: list[np.ndarray] = []
         buf_y: list[np.ndarray] = []
         have, width = 0, hi - lo
-        for keep, (x, y) in zip(masks, self._augmented_shards(
-                src, needed, train, epoch, seed)):
-            if not keep.all():
-                x, y = x[keep], y[keep]
-            buf_x.append(x)
-            buf_y.append(y)
-            have += len(x)
-            while have >= width:
-                bx = np.concatenate(buf_x) if len(buf_x) > 1 else buf_x[0]
-                by = np.concatenate(buf_y) if len(buf_y) > 1 else buf_y[0]
-                yield {"x": bx[:width], "y": by[:width]}
-                buf_x, buf_y = [bx[width:]], [by[width:]]
-                have -= width
+        shards = self._augmented_shards(src, needed, train, epoch, seed)
+        try:
+            for keep, (x, y) in zip(masks, shards):
+                if not keep.all():
+                    x, y = x[keep], y[keep]
+                buf_x.append(x)
+                buf_y.append(y)
+                have += len(x)
+                while have >= width:
+                    bx = (np.concatenate(buf_x) if len(buf_x) > 1
+                          else buf_x[0])
+                    by = (np.concatenate(buf_y) if len(buf_y) > 1
+                          else buf_y[0])
+                    yield {"x": bx[:width], "y": by[:width]}
+                    buf_x, buf_y = [bx[width:]], [by[width:]]
+                    have -= width
+        finally:
+            # release the pool's epoch now, whether the epoch ended or
+            # was closed early, not whenever the generator is collected
+            shards.close()
 
     def train_batches(self, batch_size: int, epoch: int, seed: int = 0,
                       start_batch: int = 0, rows=None):

@@ -11,18 +11,22 @@ Training: ``loss_fn`` runs the trunk (``apply_trunk``: embedding,
 positions, the blocks with dropout, the final LN) and the head outside it:
 the fused chunked cross entropy (``ops.losses.fused_lm_xent``) at vocab
 >= 8192, the plain head and fp32 softmax cross entropy below.  Data is
-``PTBData`` (the synthetic bigram stream unless real PTB is given).
+``PTBData`` (the synthetic bigram stream unless real PTB is given), or
+with ``dataset="stream"`` (or ``stream_sources`` / ``stream_dir``) the
+mixture token stream, :class:`~theanompi_torch.models.data.stream.
+StreamTokenDataset`.
 
 Serving: ``apply_logits`` (full forward, the batched reference),
 ``apply_prefill`` (one prompt, K/V into the paged cache),
 ``apply_prefill_partial`` (an uncached suffix over a cached prefix) and
 ``apply_decode`` (one token for every slot of a fixed batch).  The K/V
 writes go into the cache's pools in place; each method returns the same
-cache object.  The MoE and pipeline variants and the token stream dataset
-come with later slices.
+cache object.  The MoE and pipeline variants come with later slices.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -46,6 +50,12 @@ from theanompi_torch.ops.losses import (
     top_k_error,
 )
 from theanompi_torch.ops.opt import global_sq_norm
+
+
+def _streamed(cfg) -> bool:
+    """Whether the config asks for the token stream."""
+    return bool(cfg.get("dataset") == "stream" or cfg.get("stream_sources")
+                or cfg.get("stream_dir"))
 
 
 class _Block(Layer):
@@ -154,15 +164,16 @@ class TransformerLM(Model):
         # "auto": the fused chunked loss at vocab >= 8192
         "fused_loss": "auto",
         # "ptb": the chopped PTB-style set (synthetic unless data_path /
-        # $PTB_PATH names real PTB); the token stream is not ported yet
+        # $PTB_PATH names real PTB); "stream" (or any stream_sources /
+        # stream_dir): the checkpointable mixture token stream
         "dataset": "ptb",
     }
 
     def __init__(self, config=None):
         super().__init__(config)
         cfg = self.config
-        if ptb_path(cfg) is not None:
-            self.vocab = self.data.vocab  # real PTB sets its own vocab
+        if ptb_path(cfg) is not None or _streamed(cfg):
+            self.vocab = self.data.vocab  # real data sets its own vocab
         layers: list[Layer] = [
             Embedding(self.vocab, cfg["dim"], w_init=init_lib.normal(0.02)),
             PositionEmbedding(cfg["seq_len"], cfg["dim"]),
@@ -178,10 +189,17 @@ class TransformerLM(Model):
 
     def build_data(self):
         cfg = self.config
-        if (cfg.get("dataset") == "stream" or cfg.get("stream_sources")
-                or cfg.get("stream_dir")):
-            raise NotImplementedError(
-                "dataset='stream' not yet ported (ROADMAP queue 1 item 7)")
+        if _streamed(cfg):
+            from theanompi_torch.models.data.stream import StreamTokenDataset
+
+            if cfg.get("stream_dir") and not cfg.get("stream_sources"):
+                # one source a subdirectory, equally weighted
+                root = cfg["stream_dir"]
+                cfg = {**cfg, "stream_sources": [
+                    {"name": d, "path": os.path.join(root, d)}
+                    for d in sorted(os.listdir(root))
+                    if os.path.isdir(os.path.join(root, d))]}
+            return StreamTokenDataset(cfg)
         return PTBData(cfg)
 
     def fused_loss_enabled(self) -> bool:

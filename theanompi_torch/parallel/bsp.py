@@ -91,4 +91,6 @@ class BSP(Rule):
             exch_overlap=bool(self.config.get("exch_overlap", False)),
             exch_ramp=self.config.get("exch_ramp") or None,
             device=device, recorder=recorder,
-            seed=self.config.get("seed", 0))
+            seed=self.config.get("seed", 0),
+            prefetch_depth=self.config.get("prefetch", 2),
+            prefetch_stall_timeout=self.config.get("prefetch_stall_timeout"))

@@ -255,7 +255,7 @@ def bsp_run(device, job: dict) -> dict:
     cuDNN flag, so spawned ranks compute as their caller does);
     ``batches``, an ``.npz`` of the
     global batches stacked ``[steps, B, ...]`` (None: the model's own
-    epoch-0 batches); ``validate`` (bool); ``out``, a path prefix: rank r
+    epoch-0 batches, through the trainer's prefetcher); ``validate`` (bool); ``out``, a path prefix: rank r
     writes ``<out>-r<r>.pt`` with the params and state before the first
     step (``params0``, ``state0``), after it (``params1``, ``state1``) and
     at the end (``params``, ``state``), and the first step's exchanged
@@ -269,12 +269,13 @@ def bsp_run(device, job: dict) -> dict:
     exchange collectives by name (``all_reduces`` among them) and the
     buckets whose collective backward's hooks issued, the exchange's wire
     bytes, the optimizer state's bytes on the rank, its ``grad_clip``, the
-    validation metrics, the kernels' launches over the steps and the
-    rank's device."""
-    from theanompi_torch import kernels as K
+    validation metrics, the kernels' launches over the steps, the
+    rank's device and where its batches arrived (``batch_devices``: the
+    prefetcher places them on the rank's device)."""
     from theanompi_torch.ops import flash_attention  # noqa: F401
     from theanompi_torch.ops import paged_attention  # noqa: F401
     from theanompi_torch.parallel.bsp import BSP
+    from theanompi_torch.parallel.trainer import close_feed
 
     if job.get("allow_tf32") is not None:
         torch.backends.cuda.matmul.allow_tf32 = bool(job["allow_tf32"])
@@ -301,14 +302,30 @@ def bsp_run(device, job: dict) -> dict:
         batches = ({k: v[i][lo:hi] for k, v in stacked.items()}
                    for i in range(steps))
     else:
-        batches = tr.train_batches(0)
+        # the trainer's own feed: the prefetcher, rule key ``prefetch``
+        batches = tr._make_prefetcher(0)
+    try:
+        return _bsp_steps(tr, tap, batches, job)
+    finally:
+        close_feed(batches)
+        tr.model.cleanup()  # the loader pool's processes, if any
+
+
+def _bsp_steps(tr, tap, batches, job) -> dict:
+    """:func:`bsp_run`'s steps, on ``batches``."""
+    from theanompi_torch import kernels as K
+
+    steps = int(job["steps"])
     lr = tr.model.adjust_hyperp(0)
     cuda = tr.device.type == "cuda"
     saved = {"params0": tr.params, "state0": tr.state}
     metrics, step_s, digests = [], [], []
     for k in K.KERNELS:
         k.launches = 0
+    fed = set()  # where the batches arrived: "host" or a device
     for i, batch in zip(range(steps), batches):
+        fed.update(str(x.device) if isinstance(x, torch.Tensor) else "host"
+                   for x in batch.values())
         t0 = time.perf_counter()
         m = tr.train_iter(batch, lr)
         if cuda:
@@ -341,6 +358,7 @@ def bsp_run(device, job: dict) -> dict:
             "opt_state_bytes": _nbytes(tr.opt_state),
             "grad_clip": tr.optimizer.grad_clip,
             "val": val, "launches": launches, "device": str(tr.device),
+            "batch_devices": sorted(fed),
             "global_batch": tr.global_batch}
 
 

@@ -43,10 +43,17 @@ waits on them.  ``_run_epochs`` calls :meth:`BaseTrainer._maybe_ramp` at
 the top of each epoch (:1164-1167), where BSP swaps its exchanger by
 ``exch_ramp``.
 
+The epoch's batches come through a :class:`Prefetcher`
+(:meth:`BaseTrainer._make_prefetcher`, the reference's :1058): a thread
+``prefetch`` batches ahead (default 2; 0 iterates inline) builds this
+rank's rows and copies them to the card from pinned memory on a side
+stream, and ``_run_epochs`` builds the next epoch's prefetcher before
+validating (:1263-1269), so the queue refills while the host validates.
+
 Not carried by this slice, and refused rather than ignored: checkpoints
 and resume, telemetry, the resilience stack (fault plans, sentinel,
-watchdog, preemption), the profiler window, the prefetcher and sharded
-meshes (:data:`NOT_PORTED_KEYS`).
+watchdog, preemption), the profiler window and sharded meshes
+(:data:`NOT_PORTED_KEYS`).
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ import torch
 
 from theanompi_torch import dist as tdist
 from theanompi_torch.models.data.base import derive_seed
+from theanompi_torch.models.data.prefetch import prefetch
 from theanompi_torch.parallel.exchanger import (
     BucketExchange,
     flatten,
@@ -75,11 +83,10 @@ NOT_PORTED_KEYS = (
     "resume_force", "resume_reshard", "telemetry_dir",
     "telemetry_max_bytes", "telemetry_keep", "telemetry_health",
     "telemetry_blackbox", "telemetry_profile", "profile_dir",
-    "profile_window", "prefetch", "fault_plan", "sentinel_policy",
+    "profile_window", "fault_plan", "sentinel_policy",
     "sentinel_max_skips", "sentinel_max_rollbacks", "watchdog",
     "watchdog_multiple", "watchdog_min_s", "watchdog_poll_s",
-    "heartbeat_path", "handle_preemption", "prefetch_stall_timeout",
-    "n_model", "n_seq", "n_pipe")
+    "heartbeat_path", "handle_preemption", "n_model", "n_seq", "n_pipe")
 
 
 def _leaves(tree) -> list:
@@ -188,14 +195,26 @@ def make_train_step(model, optimizer, exchanger, seed: int, device):
     return train_step
 
 
+def close_feed(batches) -> None:
+    """Close a prefetcher or generator (None and plain iterators: no-op)."""
+    close = getattr(batches, "close", None)
+    if close is not None:
+        close()
+
+
 class BaseTrainer:
     """Iterate-validate-record skeleton; a rule supplies ``init_state``
     and the exchanger (reference names: ``compile_iter_fns``,
     ``train_iter``, ``val_iter``)."""
 
     def __init__(self, model, device=None, recorder: Recorder | None = None,
-                 seed: int = 0):
+                 seed: int = 0, prefetch_depth: int = 2,
+                 prefetch_stall_timeout: float | None = None):
         self.model = model
+        self.prefetch_depth = int(prefetch_depth)
+        self.prefetch_stall_timeout = (
+            None if prefetch_stall_timeout is None
+            else float(prefetch_stall_timeout))
         self.device = resolve_device(device)
         self.recorder = recorder or Recorder()
         self.seed = seed
@@ -228,7 +247,7 @@ class BaseTrainer:
     def train_iter(self, batch: dict, lr: float):
         r = self.recorder
         r.start("wait")
-        batch = to_device(batch, self.device)
+        batch = to_device(batch, self.device)  # free for a placed batch
         r.end("wait")
         r.start("calc")
         self.params, self.state, self.opt_state, metrics = self._step_fn(
@@ -250,11 +269,21 @@ class BaseTrainer:
         b = global_rows // self.n_workers
         return self.rank * b, (self.rank + 1) * b
 
-    def train_batches(self, epoch: int):
-        """This rank's rows of the epoch's global batches."""
+    def train_batches(self, epoch: int, start_batch: int = 0):
+        """This rank's rows of the epoch's global batches, from batch
+        ``start_batch`` on."""
         return self.model.data.train_batches(
             self.global_batch, epoch, seed=self.seed,
-            rows=self.rows(self.global_batch))
+            start_batch=start_batch, rows=self.rows(self.global_batch))
+
+    def _make_prefetcher(self, epoch: int, start_batch: int = 0):
+        """The epoch's batches on this rank's device, ``prefetch_depth``
+        ahead on a thread (0: the numpy iterator itself, placed in
+        :meth:`train_iter`).  Close it when done (``close``)."""
+        return prefetch(self.train_batches(epoch, start_batch),
+                        device=self.device, depth=self.prefetch_depth,
+                        stall_timeout=self.prefetch_stall_timeout,
+                        start_batch=start_batch)
 
     def val_iter(self, batch: dict) -> dict:
         """The metrics of this rank's share of a validation batch."""
@@ -284,25 +313,41 @@ class BaseTrainer:
 
     def _run_epochs(self, stop=None) -> None:
         model = self.model
-        for epoch in range(self.epoch, model.n_epochs):
-            self.epoch = epoch
-            self._maybe_ramp(epoch)
-            self.recorder.start_epoch()
-            lr = model.adjust_hyperp(epoch)
-            it = iter(self.train_batches(epoch))
-            while True:
-                self.recorder.start("wait")
+        batches = None
+        try:
+            for epoch in range(self.epoch, model.n_epochs):
+                self.epoch = epoch
+                self._maybe_ramp(epoch)
+                self.recorder.start_epoch()
+                lr = model.adjust_hyperp(epoch)
+                if batches is None:  # not built at the last boundary
+                    batches = self._make_prefetcher(epoch)
+                it = iter(batches)
                 try:
-                    batch = next(it)
-                except StopIteration:
-                    self.recorder.cancel("wait")
+                    while True:
+                        # the dequeue is the input stall: the wait segment
+                        self.recorder.start("wait")
+                        try:
+                            batch = next(it)
+                        except StopIteration:
+                            self.recorder.cancel("wait")
+                            break
+                        self.recorder.end("wait")
+                        self.train_iter(batch, lr)
+                finally:
+                    close_feed(batches)
+                    batches = None
+                # the next epoch's queue fills while the host validates
+                if epoch + 1 < model.n_epochs:
+                    batches = self._make_prefetcher(epoch + 1)
+                val = self.validate(epoch)
+                self.epoch = epoch + 1
+                if stop is not None and stop(epoch, val):
                     break
-                self.recorder.end("wait")
-                self.train_iter(batch, lr)
-            val = self.validate(epoch)
-            self.epoch = epoch + 1
-            if stop is not None and stop(epoch, val):
-                break
+        finally:
+            # an early stop or an exception leaves the next epoch's
+            # prefetcher open: stop its thread
+            close_feed(batches)
 
     def run(self, stop=None):
         """Train to completion; ``stop(epoch, val_metrics) -> bool`` may
@@ -311,9 +356,11 @@ class BaseTrainer:
             self.compile_iter_fns()
         if self.params is None:
             self.init_state()
-        self._run_epochs(stop)
-        self.recorder.save()
-        self.model.cleanup()
+        try:
+            self._run_epochs(stop)
+            self.recorder.save()
+        finally:
+            self.model.cleanup()  # the loader pool's processes too
         return self.recorder
 
 
@@ -348,9 +395,8 @@ class Rule:
         if unported:
             raise NotImplementedError(
                 f"rule keys {unported} not yet ported (ROADMAP queue 1: "
-                f"checkpoints item 8, the prefetcher item 6, the "
-                f"resilience stack item 14, telemetry item 15, sharded "
-                f"meshes item 13)")
+                f"checkpoints item 8, the resilience stack item 14, "
+                f"telemetry item 15, sharded meshes item 13)")
         n = tdist.world()
         if devices is not None and devices != n:
             raise ValueError(

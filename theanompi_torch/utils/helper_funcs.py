@@ -26,16 +26,19 @@ def import_model(modelfile: str, modelclass: str):
             f"module {modelfile!r} has no class {modelclass!r}") from e
 
 
+def as_step_tensor(x) -> torch.Tensor:
+    """A numpy (or tensor) leaf as a tensor of the dtype the step takes,
+    where it lies: uint8 stays uint8 (an image batch crosses as a quarter
+    of its fp32 bytes, an eighth of int64's), other integers become
+    int64, floating leaves keep their dtype."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(x))
+    if not t.is_floating_point() and t.dtype != torch.uint8:
+        t = t.long()
+    return t
+
+
 def to_device(batch: dict, device) -> dict:
-    """A numpy (or tensor) batch on ``device``: uint8 leaves stay uint8
-    (an image batch crosses as a quarter of its fp32 bytes, an eighth of
-    int64's), other integer leaves become int64, floating leaves keep
-    their dtype."""
-    out = {}
-    for k, x in batch.items():
-        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(x))
-        if not t.is_floating_point() and t.dtype != torch.uint8:
-            t = t.long()
-        out[k] = t.to(device)
-    return out
+    """A numpy (or tensor) batch on ``device``, each leaf as
+    :func:`as_step_tensor` makes it (free for a batch already there)."""
+    return {k: as_step_tensor(x).to(device) for k, x in batch.items()}
