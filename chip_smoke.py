@@ -175,6 +175,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1967,6 +1968,258 @@ def data_phase(torch, smi, kernels):
     return n2
 
 
+# -- phase 8: checkpoints and resume ------------------------------------------
+
+#: the transformer of phase 4 in bf16, 3 steps an epoch and 1 validation
+#: batch, through ``python -m theanompi_torch.launcher``
+CKPT_STEPS = 3
+CKPT_TRAIN_CFG = {**TRAIN_CFG, "precision": "bf16",
+                  "n_train": CKPT_STEPS * TRAIN_CFG["batch_size"],
+                  "n_val": TRAIN_CFG["batch_size"]}
+#: ResNet-50 at phase 5's config in bf16, global batch 256 over two ranks
+#: of 128 (shards of 128), 3 steps an epoch, 1 validation batch
+CKPT_CONV_CFG = {**BSP_CONV_CFG, "precision": "bf16",
+                 "batch_size": CONV_CFG["batch_size"] // 2}
+CKPT_RANKS = 2
+_PUBLISHED = re.compile(r"checkpoint: published (ckpt_e\d+\.npz) .*: (\d+) "
+                        r"bytes, snapshot_ms ([\d.]+), write_ms ([\d.]+)")
+
+
+def flip_leaf_byte(path, member=None):
+    """Flip the last byte of ``member``'s data (the first member's by
+    default) inside the archive, its zip directory and headers intact:
+    only a ``full`` verify sees it."""
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        info = z.getinfo(member or z.namelist()[0])
+    with open(path, "r+b") as f:
+        f.seek(info.header_offset + 26)
+        n_name = int.from_bytes(f.read(2), "little")
+        n_extra = int.from_bytes(f.read(2), "little")
+        at = info.header_offset + 30 + n_name + n_extra \
+            + info.compress_size - 1
+        f.seek(at)
+        byte = f.read(1)
+        f.seek(at)
+        f.write(bytes([byte[0] ^ 0xFF]))
+
+
+def ckpt_launcher(args, what, expect=0):
+    """``python -m theanompi_torch.launcher ARGS`` from the checkout, in a
+    process of its own; -> its standard output.  Fails unless it exits
+    ``expect``."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "theanompi_torch.launcher",
+                        *args], cwd=HERE, capture_output=True, text=True,
+                       timeout=900, env={**os.environ, "PYTHONPATH": HERE})
+    print(f"ckpt {what}: exit {r.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if r.returncode != expect:
+        print(r.stdout[-4000:] + r.stderr[-4000:], flush=True)
+    check(r.returncode == expect, f"ckpt {what}: the launcher exited "
+          f"{r.returncode}, expected {expect}")
+    return r.stdout
+
+
+def ckpt_verify_cli(d, expect):
+    r = subprocess.run([sys.executable, "-m",
+                        "theanompi_torch.utils.checkpoint", "--verify", d],
+                       cwd=HERE, capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "PYTHONPATH": HERE})
+    print(f"ckpt --verify {os.path.basename(d)}: exit {r.returncode}: "
+          f"{r.stdout.strip().splitlines()[-1]}", flush=True)
+    check(r.returncode == expect, f"ckpt: --verify {d} exited "
+          f"{r.returncode}, expected {expect}")
+
+
+def ckpt_same(a, b, name):
+    """Epoch 1 of run ``a`` against run ``b``: every leaf bit-equal, the
+    manifests byte-equal.  -> the count of leaves."""
+    import numpy as np
+
+    fa, fb = (os.path.join(d, "ckpt_e0001.npz") for d in (a, b))
+    with np.load(fa) as za, np.load(fb) as zb:
+        check(set(za.files) == set(zb.files), f"ckpt {name}: the leaf sets "
+              f"differ")
+        diff = [k for k in za.files if za[k].tobytes() != zb[k].tobytes()]
+        n = len(za.files)
+    with open(fa[:-4] + ".manifest.json", "rb") as f1, \
+            open(fb[:-4] + ".manifest.json", "rb") as f2:
+        same_manifest = f1.read() == f2.read()
+    print(f"ckpt {name}: the resumed run's ckpt_e0001.npz against the "
+          f"uninterrupted run's: {n - len(diff)}/{n} leaves bit-equal"
+          + (f" (differ: {diff[:5]})" if diff else "")
+          + f"; manifests byte-equal {same_manifest}", flush=True)
+    check(not diff and same_manifest, f"ckpt {name}: the resumed run's "
+          f"epoch 1 differs from the uninterrupted run's")
+    return n
+
+
+def ckpt_numbers(name, smi, out, d):
+    """Print the saves' bytes, ``snapshot_ms`` (the training thread's
+    share) and ``write_ms`` (the writer's), the full verify's time, and
+    the first step after the epoch boundary against the step p50."""
+    import statistics
+
+    import numpy as np
+
+    from theanompi_torch.utils.checkpoint import verify_file
+
+    saves = _PUBLISHED.findall(out)
+    check(len(saves) == 2, f"ckpt {name}: {len(saves)} publish lines, "
+          f"expected 2")
+    t0 = time.perf_counter()
+    verify_file(os.path.join(d, "ckpt_e0001.npz"), "full")
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    calc = np.load(os.path.join(d, "time_history.npy"),
+                   allow_pickle=True).item()["calc"].tolist()
+    first = calc[CKPT_STEPS]
+    p50 = statistics.median(calc[1:])
+    for f, nbytes, snap, write in saves:
+        print(f"ckpt {name} {smi}: {f}: {nbytes} bytes, snapshot_ms {snap} "
+              f"(training thread), write_ms {write} (writer thread)",
+              flush=True)
+    print(f"ckpt {name} {smi}: verify_full_ms {verify_ms:.3f}; the first "
+          f"step after the epoch-0 boundary {first * 1e3:.3f} ms against "
+          f"the p50 of the steps after the first {p50 * 1e3:.3f} ms (step "
+          f"ms {[round(x * 1e3, 3) for x in calc]})", flush=True)
+
+
+def ckpt_transformer(torch, smi, tmp):
+    """Phase 8 (a): the transformer through the launcher.  -> run C's
+    kernel launches."""
+    import shutil
+
+    import numpy as np
+
+    from theanompi_torch.resilience.events import read_events
+
+    base = ["--modelfile", "theanompi_torch.models.transformer_lm",
+            "--modelclass", "TransformerLM", "--rule-set", "print_freq=1"]
+    base += [a for k, v in CKPT_TRAIN_CFG.items()
+             for a in ("--set", f"{k}={v!r}")]
+    A, B = os.path.join(tmp, "lm-A"), os.path.join(tmp, "lm-B")
+
+    def run(d, n_epochs, what, *extra, expect=0):
+        return ckpt_launcher(base + ["--set", f"n_epochs={n_epochs}",
+                                     "--checkpoint-dir", d, *extra],
+                             what, expect)
+
+    out_a = run(A, 2, "lm A (2 epochs)")
+    run(B, 1, "lm B (1 epoch)")
+    out_c = run(B, 2, "lm C (--resume of B to 2 epochs)", "--resume")
+    ckpt_same(B, A, "lm")
+    val = np.load(os.path.join(B, "val_history.npy"),
+                  allow_pickle=True).item()
+    check(list(val["epoch"]) == [0, 1], f"ckpt lm: C's validation history "
+          f"holds epochs {list(val['epoch'])}")
+    ckpt_numbers("lm", smi, out_a, A)
+    for d in (A, B):
+        ckpt_verify_cli(d, 0)
+    # one byte flipped inside a leaf of a copy of B's epoch 1
+    D = os.path.join(tmp, "lm-D")
+    os.makedirs(D)
+    for f in os.listdir(B):
+        if os.path.isfile(os.path.join(B, f)):
+            shutil.copy(os.path.join(B, f), D)
+    flip_leaf_byte(os.path.join(D, "ckpt_e0001.npz"), "params::head/w.npy")
+    ckpt_verify_cli(D, 77)
+    run(D, 2, "lm D (--resume of the flipped copy, full verify)",
+        "--resume", "--rule-set", "checkpoint_verify='full'")
+    fell = [e for e in read_events(os.path.join(D, "resilience.json"))
+            if e["name"] == "ckpt.fallback"]
+    quarantined = os.path.exists(os.path.join(D, "corrupt",
+                                              "ckpt_e0001.npz"))
+    print(f"ckpt lm D: fell back to {[e['restored_epoch'] for e in fell]} "
+          f"over {[e['bad_epochs'] for e in fell]}; ckpt_e0001.npz under "
+          f"corrupt/ {quarantined}", flush=True)
+    check(quarantined and [e["restored_epoch"] for e in fell] == [0],
+          "ckpt lm D: the flipped file was not stepped over")
+    ckpt_same(D, A, "lm D")
+    launches = json.loads(out_c.split("tmlauncher: kernel launches: ")[1]
+                          .splitlines()[0])
+    print(f"ckpt lm C launches {launches}", flush=True)
+    want = {"flash_fwd": 8 * (CKPT_STEPS + 1), "flash_bwd_dq": 8 * CKPT_STEPS,
+            "flash_bwd_dkv": 8 * CKPT_STEPS}
+    for k, n in want.items():
+        check(launches.get(k) == n, f"ckpt lm C: {k} launched "
+              f"{launches.get(k)} times, expected {n}")
+    for d in (A, B, D):
+        shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
+def ckpt_conv(torch, smi, tmp):
+    """Phase 8 (b): ResNet-50 under ``zero1`` on two ranks, through the
+    launcher's ``run_rank`` on each rank of ``dist.spawn``; cuDNN held to
+    its deterministic algorithms, so a run repeats bit for bit."""
+    import shutil
+
+    import numpy as np
+
+    from theanompi_torch import dist as tdist
+    from theanompi_torch.parallel.rank_jobs import run_all
+
+    _, backend, device, _, _ = bsp_layout(torch)
+    n = CKPT_RANKS
+    workers = max(1, ((os.cpu_count() or 1) - 2) // n)
+    print(f"ckpt conv: {n} ranks, backend {backend}, device {device}, "
+          f"{workers} loader workers a rank", flush=True)
+    A, B = os.path.join(tmp, "conv-A"), os.path.join(tmp, "conv-B")
+
+    def run(d, n_epochs, what, resume=False):
+        job = {"modelfile": "theanompi_torch.models.resnet50",
+               "modelclass": "ResNet50",
+               "model_config": {**CKPT_CONV_CFG, "n_epochs": n_epochs,
+                                "loader_workers": workers},
+               "rule_config": {"exch_strategy": "zero1", "seed": 0,
+                               "print_freq": 1, "checkpoint_dir": d,
+                               "resume": resume,
+                               "prefetch_stall_timeout": 600},
+               "allow_tf32": False, "deterministic": True}
+        t0 = time.perf_counter()
+        res = tdist.spawn(run_all, n, backend, device,
+                          ([("launch", (job,))],), timeout_s=900)
+        codes = [r[0][0] for r in res]
+        print(f"ckpt {what}: exit {codes} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        check(codes == [0] * n, f"ckpt {what}: ranks exited {codes}")
+        return res[0][0][2]
+
+    out_a = run(A, 2, "conv A (2 epochs)")
+    run(B, 1, "conv B (1 epoch)")
+    run(B, 2, "conv C (resume of B to 2 epochs)", resume=True)
+    n_leaves = ckpt_same(B, A, "conv")
+    with np.load(os.path.join(A, "ckpt_e0001.npz")) as z:
+        kinds = {k.split("::")[0] for k in z.files}
+        buckets = [k for k in z.files if k.startswith("opt_state::")]
+    print(f"ckpt conv: {n_leaves} leaves ({sorted(kinds)}), zero1 buckets "
+          f"{len(buckets)}", flush=True)
+    check({"params", "state", "opt_state"} <= kinds and buckets,
+          "ckpt conv: the checkpoint lacks the BN state or the buckets")
+    ckpt_numbers("conv", smi, out_a, A)
+    for d in (A, B):
+        ckpt_verify_cli(d, 0)
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def ckpt_phase(torch, smi):
+    """Phase 8: checkpoint and resume at full width.  -> the transformer's
+    resumed run's launches (``train_resume_bf16``)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="ckpt-")
+    try:
+        launches = ckpt_transformer(torch, smi, tmp)
+        torch.cuda.empty_cache()
+        ckpt_conv(torch, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2026,6 +2279,10 @@ def main() -> int:
         # development run: phase 7 only, no result line
         data_phase(torch, smi, K.KERNELS)
         return 0
+    if "--ckpt" in sys.argv[1:]:
+        # development run: phase 8 only, no result line
+        ckpt_phase(torch, smi)
+        return 0
     if "--decode" in sys.argv[1:]:
         # development run: kernels 4 and 5 only, no result line
         checks = {"paged_decode": check_paged(torch),
@@ -2075,6 +2332,8 @@ def main() -> int:
     bsp_launches = bsp_phase(torch, smi, K.KERNELS)
     # -- phase 7 -----------------------------------------------------------
     stream_launches = data_phase(torch, smi, K.KERNELS)
+    # -- phase 8 -----------------------------------------------------------
+    resume_launches = ckpt_phase(torch, smi)
 
     # the serving slice's kernels report their serve run; the flash
     # kernels the training run, which launches all three
@@ -2084,6 +2343,8 @@ def main() -> int:
                         "serve_bf16_int8": runs[("bf16", True)][0][k.name],
                         "train_bf16": train_launches[k.name],
                         "train_stream_bf16": stream_launches[k.name],
+                        "train_resume_bf16": resume_launches.get(k.name,
+                                                                 0),
                         **{path: got[k.name]
                            for path, got in bsp_launches.items()}}
                for k in K.KERNELS}

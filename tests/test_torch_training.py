@@ -178,11 +178,16 @@ def test_bsp_trains_two_epochs_on_cpu_through_wait():
 
 def test_rule_refuses_what_it_does_not_carry():
     cfg = {**TINY, "vocab": 64}
-    for key in ("checkpoint_dir", "telemetry_dir", "fault_plan",
-                "profile_dir"):
+    for key in ("telemetry_dir", "fault_plan", "profile_dir"):
         assert key in NOT_PORTED_KEYS
         with pytest.raises(NotImplementedError, match="not yet ported"):
             BSP({key: "x"}).init(devices=1, model_config=cfg, device="cpu")
+    # the checkpoint keys are carried: they reach the trainer
+    for key in ("checkpoint_dir", "checkpoint_keep", "checkpoint_async",
+                "checkpoint_verify", "checkpoint_every_n_iters", "resume",
+                "resume_force"):
+        assert key not in NOT_PORTED_KEYS
+    assert "resume_reshard" in NOT_PORTED_KEYS
     # the exchange's sharded update, overlap and ramp, and the
     # prefetcher, are carried: their keys reach the trainer, which refuses
     # only what the reference does
@@ -212,9 +217,13 @@ def test_default_configs_agree_on_every_key_the_port_reads():
                 "seq_len", "dim", "heads", "n_layers", "dropout",
                 "attn_impl", "dataset"):
         assert mine[key] == ref[key], key
-    # keys the reference reads with a default rather than from its table
-    assert mine["fused_loss"] == "auto"
-    assert "fused_loss" not in ref
+    # the same key set (the run fingerprint hashes the whole config);
+    # the keys the reference reads with a default rather than from its
+    # table are read so here too
+    assert mine.keys() == ref.keys()
+    assert "fused_loss" not in mine and "vocab" not in mine
+    assert TransformerLM(dict(TINY)).fused_loss_enabled() is False
+    assert TransformerLM({**TINY, "vocab": 8192}).fused_loss_enabled()
     assert mine["dropout"] == 0.1
     # serving still runs with dropout off: train=False never drops
     m = TransformerLM({**TINY, "vocab": 64, "dropout": 0.5})

@@ -4,9 +4,11 @@ default.
 - a fresh interpreter imports the port's serving and training stacks
   (the BSP rule, the launcher, the losses, the conv nets and their data
   planes, the process groups and the ranks' jobs, the native crop, the
-  prefetcher, the loader pool and the token stream) and ``chip_smoke.py``
-  (as a module) without ``jax`` or ``theanompi_tpu`` ever entering
-  ``sys.modules`` (the spawned ranks' own modules are checked by
+  prefetcher, the loader pool and the token stream, the checkpoints and
+  the exit codes and event log) and ``chip_smoke.py`` (as a module), and
+  runs the checkpoint scrubber (``--verify``) on an empty directory,
+  without ``jax`` or ``theanompi_tpu`` ever entering ``sys.modules``
+  (the spawned ranks' own modules are checked by
   ``test_torch_exchanger.py`` and ``test_torch_bsp_multirank.py``);
 - a spawned process that runs the loader pool's worker on a shard
   imports neither, nor ``torch``;
@@ -59,6 +61,12 @@ def test_import_wall_in_a_fresh_interpreter():
         "import theanompi_torch.models.data.prefetch\n"
         "import theanompi_torch.models.data.shm_loader\n"
         "import theanompi_torch.models.data.stream\n"
+        "import theanompi_torch.utils.checkpoint\n"
+        "import theanompi_torch.resilience.codes\n"
+        "import theanompi_torch.resilience.events\n"
+        "import tempfile\n"
+        "from theanompi_torch.utils.checkpoint import main as scrub\n"
+        "assert scrub(['--verify', tempfile.mkdtemp()]) == 0\n"
         "assert theanompi_torch.native.available()\n"
         "from theanompi_torch import BSP\n"
         "import chip_smoke\n"
@@ -174,9 +182,9 @@ def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--checkpoint-dir", "ck"], ["--telemetry-dir", "tel"], ["--resume"],
-    ["--supervise"], ["--record-dir", "rec"], ["--rule", "EASGD"],
-    ["--config-json", "c.json"], ["--sentinel", "abort"]])
+    ["--resume-reshard"], ["--telemetry-dir", "tel"], ["--elastic"],
+    ["--supervise"], ["--compile-cache-dir", "x"], ["--rule", "EASGD"],
+    ["--hang-timeout", "5"], ["--sentinel", "abort"]])
 def test_launcher_unported_flags_exit_78(flags, capsys):
     from theanompi_torch.launcher import main as launch
 
@@ -198,7 +206,7 @@ def test_launcher_trains_on_cpu_when_asked(capsys):
     out = capsys.readouterr().out
     assert "iter 2:" in out and "tmlauncher: done. final val:" in out
     # an unknown rule key of the reference's is refused, a config error
-    assert launch(argv + ["--rule-set", "checkpoint_dir='x'"]) == 78
+    assert launch(argv + ["--rule-set", "telemetry_dir='x'"]) == 78
 
 
 def test_kernel_modules_build_lazily():

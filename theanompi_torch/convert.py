@@ -26,6 +26,16 @@ bucket buffers sharded over the ``data`` axis (``{"velocity": [buf,
 reference's buffers, :func:`zero1_opt_state_to_jax` joins the ranks'
 slices back.  Replicated entries (Adam's step ``t``) are the same on both
 sides.
+
+The train state of a checkpoint: the reference's ``.npz`` keys a leaf
+``"<tree>::<path joined by />"`` (``params``, ``state``, ``opt_state``),
+conv kernels HWIO.  :func:`train_state_to_jax` maps the trainer's trees
+(host tensors) to those flat leaves, :func:`train_state_from_jax` back
+into the trainer's templates: params and state as above, the per-leaf
+optimizer states (SGD's ``{"velocity": tree}``, Adam's ``{"m", "v",
+"t"}``, RMSProp's ``{"sq"}``) by :func:`opt_state_to_jax` /
+:func:`opt_state_from_jax`, and ``zero1``'s global buckets in the
+reference's element order, from which each rank cuts its slice.
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ import numpy as np
 import torch
 
 from theanompi_torch.ops.quant import QuantizedTensor
+from theanompi_torch.tree import tree_map
+from theanompi_torch.utils.checkpoint import flat_leaves, restore_into
 
 _TOP_KEY = re.compile(
     r"^(\d{2}_(embedding|positionembedding|_block|layernorm|conv2d|"
@@ -133,6 +145,21 @@ def _relayout(buf: np.ndarray, bucket, to_port: bool) -> np.ndarray:
     return np.concatenate(out)
 
 
+def opt_state_to_jax(opt_state: dict) -> dict:
+    """A per-leaf optimizer state of the port (params-shaped trees and
+    replicated scalars) -> the reference's (numpy; conv kernels HWIO)."""
+    return {k: params_to_jax(v) if isinstance(v, dict) else _to_jax(v)
+            for k, v in opt_state.items()}
+
+
+def opt_state_from_jax(opt_state: dict) -> dict:
+    """The reference's per-leaf optimizer state -> the port's (CPU
+    tensors; conv kernels OIHW): the inverse of
+    :func:`opt_state_to_jax`."""
+    return {k: params_from_jax(v) if isinstance(v, dict) else _tensor(v)
+            for k, v in opt_state.items()}
+
+
 def zero1_opt_state_from_jax(opt_state: dict, layout: list, rank: int,
                              n: int) -> dict:
     """The reference's ``zero1`` optimizer state (numpy: lists of global
@@ -151,8 +178,86 @@ def zero1_opt_state_to_jax(rank_states: list, layout: list) -> dict:
     reference's (numpy: each bucket's slices joined and in its element
     order; replicated entries from rank 0): the inverse of
     :func:`zero1_opt_state_from_jax`."""
-    return {k: [_relayout(np.concatenate([_to_jax(s[k][i])
-                                          for s in rank_states]), b, False)
-                for i, b in enumerate(layout)]
+    return zero1_global_to_jax(
+        {k: [np.concatenate([_to_jax(s[k][i]) for s in rank_states])
+             for i in range(len(layout))] if isinstance(v, list) else v
+         for k, v in rank_states[0].items()}, layout)
+
+
+def zero1_global_to_jax(opt_state: dict, layout: list) -> dict:
+    """A ``zero1`` optimizer state of global ``(padded,)`` buckets in the
+    port's element order (the ranks' slices gathered,
+    ``Exchanger.zero1_gather_opt_state``) -> the reference's."""
+    return {k: [_relayout(_to_jax(buf) if hasattr(buf, "detach") else buf,
+                          b, False) for buf, b in zip(v, layout)]
             if isinstance(v, list) else _to_jax(v)
-            for k, v in rank_states[0].items()}
+            for k, v in opt_state.items()}
+
+
+def train_state_to_jax(trees: dict, zero1_layout: list | None = None) -> dict:
+    """The trainer's checkpoint trees (``params``, ``state``,
+    ``opt_state``; host tensors in the port's layouts) -> the reference's
+    flat ``{"<tree>::<path>": ndarray}``.  ``zero1_layout``: the port's
+    ``Exchanger.zero1_layout`` when ``opt_state`` holds ``zero1``'s global
+    buckets."""
+    out = {}
+    for name, tree in trees.items():
+        if name == "opt_state":
+            tree = (zero1_global_to_jax(tree, zero1_layout)
+                    if zero1_layout is not None else opt_state_to_jax(tree))
+        elif name == "params":
+            tree = params_to_jax(tree)
+        else:
+            tree = tree_map(_to_jax, tree)
+        out.update(flat_leaves(name, tree))
+    return out
+
+
+def _to_template(arr: np.ndarray) -> np.ndarray:
+    """A stored leaf in its template's layout: 4-D HWIO -> OIHW."""
+    return np.transpose(arr, _TO_OIHW) if arr.ndim == 4 else arr
+
+
+def _zero1_from_flat(sub: dict, template: dict, layout: list, rank: int,
+                     n: int) -> dict:
+    ref = {}
+    for k, v in template.items():
+        if not isinstance(v, list):
+            if k not in sub:
+                raise KeyError(f"checkpoint missing leaf {k!r}")
+            ref[k] = sub[k]
+            continue
+        bufs = []
+        for i, b in enumerate(layout):
+            key = f"{k}/{i}"
+            if key not in sub:
+                raise KeyError(f"checkpoint missing leaf {key!r}")
+            if sub[key].shape != (b.padded,):
+                raise ValueError(
+                    f"checkpoint leaf {key!r} shape {sub[key].shape} != "
+                    f"expected {(b.padded,)} (zero1 bucket {i} at "
+                    f"{n} rank(s))")
+            bufs.append(sub[key])
+        ref[k] = bufs
+    mine = zero1_opt_state_from_jax(ref, layout, rank, n)
+    return tree_map(lambda x, t: x.to(device=t.device, dtype=t.dtype),
+                    mine, template)
+
+
+def train_state_from_jax(arrays: dict, templates: dict,
+                         zero1: tuple | None = None) -> dict:
+    """The reference's flat leaves (``{"<tree>::<path>": ndarray}``, as
+    :func:`train_state_to_jax` writes them) -> trees shaped, typed and
+    placed like ``templates`` (the trainer's fresh state).  ``zero1``:
+    ``(layout, rank, n)`` when ``opt_state`` is this rank's ``zero1``
+    slices, cut from the file's global buckets.  A missing leaf raises
+    ``KeyError``, a shape that differs from the template's ``ValueError``."""
+    out = {}
+    for name, template in templates.items():
+        sub = {k.split("::", 1)[1]: v for k, v in arrays.items()
+               if k.startswith(f"{name}::")}
+        if name == "opt_state" and zero1 is not None:
+            out[name] = _zero1_from_flat(sub, template, *zero1)
+        else:
+            out[name] = restore_into(template, sub, convert=_to_template)
+    return out

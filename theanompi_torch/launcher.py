@@ -3,11 +3,22 @@
 Counterpart of ``theanompi_tpu/launcher.py``: the reference's flag names
 for what the port carries — ``--rule BSP``, ``--modelfile``,
 ``--modelclass``, ``--set K=V`` (model config), ``--rule-set K=V`` (rule
-config), ``--seed``, ``--quiet``, ``--devices N|all`` — plus ``--device``
-(the card by default; ``cpu`` only when asked).  The reference's other
-flags (checkpoints, telemetry, supervision, ...) are accepted by the
-parser and refused with exit 78 ``tmlauncher: error: config: --flag not
-yet ported``; so are the rules other than BSP.
+config), ``--config-json`` (a JSON file ``{"model": {...}, "rule":
+{...}}`` that the ``--set`` / ``--rule-set`` pairs override),
+``--record-dir`` (the recorder's histories), ``--checkpoint-dir``,
+``--resume``, ``--resume-force``, ``--seed``, ``--quiet``, ``--devices
+N|all`` — plus ``--device`` (the card by default; ``cpu`` only when
+asked).  The reference's other flags (the reshard, telemetry,
+supervision, ...) are accepted by the parser and refused with exit 78
+``tmlauncher: error: config: --flag not yet ported``; so are the rules
+other than BSP.
+
+Checkpoints: ``--checkpoint-dir D`` saves at every epoch boundary (and
+every ``--rule-set checkpoint_every_n_iters=N`` steps) in the reference's
+format, so a directory written by ``tmlauncher`` resumes here and one
+written here resumes in ``tmlauncher``; ``--resume`` continues from the
+newest verifiable checkpoint in D, ``--resume-force`` past a fingerprint
+mismatch.
 
 ``--devices N`` (the reference's worker count, :137 and :409) starts N
 local ranks through :func:`theanompi_torch.dist.spawn`, one process
@@ -17,9 +28,13 @@ ranks on the host.  ``all`` is every visible card (1 on the CPU).  Rank
 ``torchrun`` instead (``WORLD_SIZE`` set), each process joins the group
 as one rank.
 
-Exit codes (the reference's contract): 0 clean, 70 crash (environment or
-training), 78 config error, each with one ``tmlauncher: error:`` line on
-stderr (``THEANOMPI_DEBUG=1`` adds the traceback).
+Exit codes (the reference's contract, :mod:`theanompi_torch.resilience.
+codes`): 0 clean, 70 crash (environment, training, or a checkpoint that
+cannot be read), 77 no verifiable checkpoint to resume from (the recovery
+chain exhausted), 78 config error or a checkpoint of another run (without
+``--resume-force``), each with one ``tmlauncher: error:`` line on stderr
+(``THEANOMPI_DEBUG=1`` adds the traceback).  Above one rank every rank
+ends with the worst code of any rank's start.
 
 The exchange's rule keys: ``--rule-set exch_strategy=zero1`` (the
 sharded update), ``--rule-set exch_overlap=true`` (collectives from
@@ -39,25 +54,21 @@ from __future__ import annotations
 
 import argparse
 import ast
+import json
 import os
 import sys
 
-EXIT_CRASH = 70
-EXIT_CONFIG = 78
+from theanompi_torch.resilience.codes import EXIT_CKPT, EXIT_CONFIG, EXIT_CRASH
 
 #: reference flags whose machinery comes with later slices: (flag, dest)
 NOT_PORTED = (
-    ("--config-json", "config_json"),
-    ("--record-dir", "record_dir"), ("--telemetry-dir", "telemetry_dir"),
-    ("--checkpoint-dir", "checkpoint_dir"),
-    ("--compile-cache-dir", "compile_cache_dir"), ("--resume", "resume"),
-    ("--resume-force", "resume_force"),
+    ("--telemetry-dir", "telemetry_dir"),
+    ("--compile-cache-dir", "compile_cache_dir"),
     ("--resume-reshard", "resume_reshard"), ("--supervise", "supervise"),
     ("--max-restarts", "max_restarts"), ("--backoff-base", "backoff_base"),
     ("--hang-timeout", "hang_timeout"), ("--elastic", "elastic"),
     ("--sentinel", "sentinel"))
-_FLAGS = ("--resume", "--resume-force", "--resume-reshard", "--supervise",
-          "--elastic")
+_FLAGS = ("--resume-reshard", "--supervise", "--elastic")
 
 #: init-phase exception types that will not fix themselves on a rerun
 _CONFIG_ERRORS = (ImportError, AttributeError, TypeError, ValueError,
@@ -116,6 +127,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="worker count: N local ranks, one card each "
                    "(NCCL), or gloo ranks with --device cpu; 'all' is "
                    "every visible card (1 on the CPU)")
+    p.add_argument("--config-json", default=None,
+                   help="path to a JSON file with {'model': {...}, "
+                   "'rule': {...}}; --set / --rule-set override it")
+    p.add_argument("--record-dir", default=None,
+                   help="where the recorder writes its *_history.npy and "
+                   "summary.json")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save a verified checkpoint at every epoch "
+                   "boundary, in the reference's format")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the newest verifiable checkpoint "
+                   "in --checkpoint-dir")
+    p.add_argument("--resume-force", action="store_true",
+                   help="resume even where the checkpoint's run "
+                   "fingerprint (mesh, exchange strategy, model config) "
+                   "differs from this run's")
     for flag, dest in NOT_PORTED:
         if flag in _FLAGS:
             p.add_argument(flag, dest=dest, action="store_true",
@@ -143,9 +170,29 @@ def build_configs(args) -> tuple[dict, dict]:
             raise ConfigError(f"{flag} not yet ported")
     if args.rule != "BSP":
         raise ConfigError(f"--rule {args.rule} not yet ported")
-    model_config = _parse_kv(args.model_set)
-    rule_config = _parse_kv(args.rule_set)
+    model_config: dict = {}
+    rule_config: dict = {}
+    if args.config_json:
+        try:
+            with open(args.config_json) as f:
+                blob = json.load(f)
+        except (OSError, ValueError) as e:
+            raise ConfigError(f"--config-json {args.config_json}: {e}")
+        if not isinstance(blob, dict):
+            raise ConfigError(f"--config-json {args.config_json}: not a "
+                              f"JSON object")
+        model_config.update(blob.get("model", {}))
+        rule_config.update(blob.get("rule", {}))
+    model_config.update(_parse_kv(args.model_set))
+    rule_config.update(_parse_kv(args.rule_set))
     rule_config.setdefault("seed", args.seed)
+    for key in ("record_dir", "checkpoint_dir"):
+        if getattr(args, key):
+            rule_config[key] = getattr(args, key)
+    if args.resume:
+        rule_config["resume"] = True
+    if args.resume_force:
+        rule_config["resume_force"] = True
     if args.quiet:
         rule_config["verbose"] = False
     return model_config, rule_config
@@ -181,19 +228,33 @@ def worker_count(args, on_cpu: bool) -> int:
 def run_rank(device, job: dict) -> tuple[int, dict | None]:
     """One rank of a launcher run (every rank calls it): -> (exit code,
     final validation metrics, rank 0's; None elsewhere or on failure).
-    An init failure on any rank ends every rank with the worst code; a
-    training failure raises (the spawner ends the other ranks)."""
+    An init failure on any rank (a resume's included) ends every rank
+    with the worst code; a training failure raises (the spawner ends the
+    other ranks)."""
     import torch
     import torch.distributed as dist
 
     from theanompi_torch import dist as tdist
     from theanompi_torch.parallel.bsp import BSP
+    from theanompi_torch.utils.checkpoint import (
+        CheckpointCorruptError,
+        CheckpointFingerprintError,
+    )
 
     code, rule = 0, BSP(config=job["rule_config"])
     try:
         rule.init(devices=tdist.world(), modelfile=job["modelfile"],
                   modelclass=job["modelclass"],
                   model_config=job["model_config"], device=device)
+    except CheckpointCorruptError as e:
+        # the recovery chain is exhausted (the files are under corrupt/):
+        # a rerun would walk the same chain
+        code = EXIT_CKPT
+        _error_line("checkpoint", e)
+    except CheckpointFingerprintError as e:
+        # another run's checkpoint: the user holds the override
+        code = EXIT_CONFIG
+        _error_line("resume", e)
     except _CONFIG_ERRORS as e:
         code = EXIT_CONFIG
         _error_line("init", e)
@@ -209,6 +270,12 @@ def run_rank(device, job: dict) -> tuple[int, dict | None]:
     recorder = rule.wait()
     if tdist.rank() != 0:
         return 0, None
+    if recorder.verbose:
+        from theanompi_torch.kernels import KERNELS
+
+        # the hand-written kernels this rank's run launched, by name
+        print("tmlauncher: kernel launches: " + json.dumps(
+            {k.name: k.launches for k in KERNELS}), flush=True)
     return 0, {k: v[-1] for k, v in recorder.val_history.items() if v}
 
 
@@ -248,6 +315,11 @@ def main(argv: list[str] | None = None) -> int:
     except KeyboardInterrupt:
         raise  # a human's ^C is not a crash to classify
     except Exception as e:
+        from theanompi_torch.utils.checkpoint import CheckpointCorruptError
+
+        if isinstance(e, CheckpointCorruptError):
+            _error_line("checkpoint", e)
+            return EXIT_CKPT
         _error_line("training", e)
         return EXIT_CRASH
     if code == 0 and val is not None and not args.quiet:

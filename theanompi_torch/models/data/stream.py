@@ -17,10 +17,12 @@ the same config gives the reference's batches bit for bit.
   the sample's position alone.
 - **Cursors**: each source's window cursor carries across epochs (the
   stream does not rewind).  The start-of-epoch base advances only when an
-  epoch's generator is exhausted, so a prefetcher running ahead moves
-  nothing; :meth:`StreamTokenDataset.state` is that base with the
-  mixture's weights, and a mid-epoch resume (``start_batch``) replays only
-  the integer mixture choices of the batches before it.
+  epoch's generator is exhausted, which a prefetcher's producer does up
+  to its depth in batches before training reaches the end, so the
+  trainer reads the state before it builds an epoch's generator;
+  :meth:`StreamTokenDataset.state` is that base with the mixture's
+  weights, and a mid-epoch resume (``start_batch``) replays only the
+  integer mixture choices of the batches before it.
 - **Ranks**: ``rows=(lo, hi)`` builds rows ``lo:hi`` of each global batch
   alone, while every rank advances the cursors over the whole batch.
 

@@ -154,24 +154,42 @@ class TransformerLM(Model):
         "dim": 256,
         "heads": 8,
         "n_layers": 4,
-        "vocab": 256,
         # training only: serving runs train=False
         "dropout": 0.1,
+        # the reference's sequence-parallel attention and its scan unroll
+        # factors: kept in the table (the run fingerprint hashes the whole
+        # config, so the key sets must be the reference's), and any other
+        # value than these is refused (UNCARRIED)
+        "seq_parallel": False,
         # "auto": kernels 1-3 on the card (their wrappers raise on a shape
         # they do not take), blockwise elsewhere; "pallas"/"blockwise"
         # force a path (the reference's names)
         "attn_impl": "auto",
-        # "auto": the fused chunked loss at vocab >= 8192
-        "fused_loss": "auto",
+        "layers_unroll": 1,
+        "loss_unroll": 1,
         # "ptb": the chopped PTB-style set (synthetic unless data_path /
         # $PTB_PATH names real PTB); "stream" (or any stream_sources /
         # stream_dir): the checkpointable mixture token stream
         "dataset": "ptb",
+        # read with defaults, as the reference reads them: "vocab" (256)
+        # and "fused_loss" ("auto": the fused chunked loss at vocab >=
+        # 8192)
     }
+
+    #: keys of the reference's table whose machinery the port does not
+    #: carry, with the one value it runs: another value raises
+    UNCARRIED = {"seq_parallel": False, "layers_unroll": 1, "loss_unroll": 1}
 
     def __init__(self, config=None):
         super().__init__(config)
         cfg = self.config
+        for key, value in self.UNCARRIED.items():
+            if cfg[key] != value:
+                raise NotImplementedError(
+                    f"TransformerLM: {key}={cfg[key]!r} not yet ported "
+                    f"(the port runs {key}={value!r}; sequence-parallel "
+                    f"meshes and scan unrolling are the reference's XLA "
+                    f"machinery)")
         if ptb_path(cfg) is not None or _streamed(cfg):
             self.vocab = self.data.vocab  # real data sets its own vocab
         layers: list[Layer] = [

@@ -9,6 +9,10 @@ update (fused with the exchange under ``zero1``), then the metrics and
 model state averaged over the ranks.  ``exch_overlap`` issues the
 buckets' collectives from backward, and ``exch_ramp`` swaps the exchange
 strategy at epoch boundaries (:mod:`theanompi_torch.parallel.overlap`).
+The run fingerprint of its checkpoints carries the ramp's base strategy
+and the ramp and overlap knobs (``_fingerprint_extra``, the reference's
+:215-229), so a checkpoint written in any ramp phase matches a resume of
+the same run; a resume lands in the phase its epoch dictates.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ class BSPTrainer(BaseTrainer):
                  exch_bucket_mb: float = 4.0, exch_overlap: bool = False,
                  exch_ramp: str | None = None, **kwargs):
         super().__init__(model, **kwargs)
+        self.exch_strategy_base = exch_strategy
         self.exch_overlap = bool(exch_overlap)
         self.ramp = (RampSchedule.parse(exch_ramp, exch_strategy)
                      if exch_ramp else None)
@@ -65,6 +70,18 @@ class BSPTrainer(BaseTrainer):
         self.state = tree_to(state, self.device)
         self.opt_state = self.init_opt_state()
 
+    def _fingerprint_extra(self) -> dict:
+        """The base strategy under a ramp (the active one varies by
+        epoch), and the ramp and overlap knobs where set: changing either
+        across a resume is a change of run."""
+        extra = {}
+        if self.ramp is not None:
+            extra["exchange"] = self.exch_strategy_base
+            extra["exch_ramp"] = self.ramp.describe()
+        if self.exch_overlap:
+            extra["exch_overlap"] = True
+        return extra
+
     def _maybe_ramp(self, epoch: int) -> None:
         """Activate the ramp phase of ``epoch``: swap in its exchanger
         (built at construction) and rebuild the step closure."""
@@ -90,7 +107,4 @@ class BSP(Rule):
             exch_bucket_mb=self.config.get("exch_bucket_mb", 4.0),
             exch_overlap=bool(self.config.get("exch_overlap", False)),
             exch_ramp=self.config.get("exch_ramp") or None,
-            device=device, recorder=recorder,
-            seed=self.config.get("seed", 0),
-            prefetch_depth=self.config.get("prefetch", 2),
-            prefetch_stall_timeout=self.config.get("prefetch_stall_timeout"))
+            device=device, recorder=recorder, **self.trainer_kwargs())

@@ -609,6 +609,47 @@ class Exchanger:
             torch.zeros(b.padded // n, dtype=b.dtype, device=device)
             for b in self.zero1_layout(params, n)])
 
+    def zero1_gather_opt_state(self, opt_state: dict) -> dict | None:
+        """Rank 0's ``zero1`` optimizer state with each bucket's
+        ``padded // n`` slices gathered from every rank into the global
+        ``(padded,)`` bucket (the port's element order; replicated
+        entries as they are): what a checkpoint holds.  None on the other
+        ranks, which allocate nothing.  A collective: every rank calls
+        it.  Under NCCL the buckets land on rank 0's card; gloo gathers
+        host tensors, so there each slice goes through its rank's host and
+        rank 0 assembles the buckets in host memory.  At a world of 1 the
+        state is global already."""
+        n, r = tdist.world(), tdist.rank()
+        if n == 1:
+            return opt_state
+        on_host = dist.get_backend() == "gloo"
+
+        def gather(shard):
+            shard = (shard.cpu() if on_host else shard).contiguous()
+            full = shard.new_empty(n * shard.numel()) if r == 0 else None
+            dist.gather(shard, None if full is None
+                        else list(full.view(n, -1)), dst=0)
+            return full
+
+        out = {k: [gather(s) for s in v] if isinstance(v, list) else v
+               for k, v in opt_state.items()}
+        return out if r == 0 else None
+
+    def zero1_gathered_like(self, opt_state: dict) -> dict:
+        """What :meth:`zero1_gather_opt_state` returns on rank 0, with no
+        collective and no memory: meta tensors for buckets that land on
+        the card (the shapes a checkpoint's pinned staging needs), none
+        for buckets assembled on the host."""
+        n = tdist.world()
+        if n == 1:
+            return opt_state
+        if dist.get_backend() == "gloo":
+            return {k: v for k, v in opt_state.items()
+                    if not isinstance(v, list)}
+        return {k: [torch.empty(n * s.numel(), dtype=s.dtype, device="meta")
+                    for s in v] if isinstance(v, list) else v
+                for k, v in opt_state.items()}
+
     # -- static accounting ----------------------------------------------------
     def layout(self, tree, axis_size: int) -> list[_Bucket]:
         """The bucket layout of ``tree``'s leaves at ``axis_size`` ranks."""

@@ -13,6 +13,8 @@ a group: the one-process run they are held against.
   per-rank grads, for an optimizer;
 - :func:`bsp_run` — steps of the BSP rule, through ``BSP().init`` on each
   rank, with what the checks need from the first step;
+- :func:`launch` — one launcher run on each rank (``launcher.run_rank``:
+  training, checkpoints, resume), what ``--devices N`` runs;
 - :func:`pmean_case`, :func:`loaded_modules`, and :func:`run_all`, which
   runs several jobs in one spawn.
 """
@@ -381,7 +383,33 @@ def loaded_modules(device, prefixes) -> list:
     return sorted(m for m in sys.modules if m.split(".")[0] in prefixes)
 
 
+def launch(device, job: dict) -> tuple:
+    """``theanompi_torch.launcher.run_rank(device, job)`` on this rank
+    (``job``: ``modelfile``, ``modelclass``, ``model_config``,
+    ``rule_config``, as the launcher builds them), after ``allow_tf32``
+    (as :func:`bsp_run`'s) and ``deterministic`` (True: cuDNN picks only
+    deterministic algorithms, so a run repeats bit for bit).  -> the
+    launcher's (exit code, final validation metrics on rank 0, what the
+    run printed on this rank's standard output)."""
+    import contextlib
+    import io
+
+    from theanompi_torch.launcher import run_rank
+
+    if job.get("allow_tf32") is not None:
+        torch.backends.cuda.matmul.allow_tf32 = bool(job["allow_tf32"])
+        torch.backends.cudnn.allow_tf32 = bool(job["allow_tf32"])
+    if job.get("deterministic"):
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code, val = run_rank(device, job)
+    return code, val, out.getvalue()
+
+
 JOBS = {"exchange_cases": exchange_cases, "bsp_run": bsp_run,
+        "launch": launch,
         "zero1_update_cases": zero1_update_cases, "pmean_case": pmean_case,
         "loaded_modules": loaded_modules}
 

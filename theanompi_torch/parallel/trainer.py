@@ -50,19 +50,41 @@ rank's rows and copies them to the card from pinned memory on a side
 stream, and ``_run_epochs`` builds the next epoch's prefetcher before
 validating (:1263-1269), so the queue refills while the host validates.
 
-Not carried by this slice, and refused rather than ignored: checkpoints
-and resume, telemetry, the resilience stack (fault plans, sentinel,
-watchdog, preemption), the profiler window and sharded meshes
-(:data:`NOT_PORTED_KEYS`).
+Checkpoints (``checkpoint_dir`` and its keys, the reference's :343-410):
+``save_checkpoint`` at each epoch boundary after validation, and every
+``checkpoint_every_n_iters`` steps inside an epoch (``completed=False``,
+the data plane's cursor in the manifest); the training thread pays the
+snapshot, a writer thread the rest (:mod:`theanompi_torch.utils.
+checkpoint`).  The files are the reference's (the codec is
+:func:`theanompi_torch.convert.train_state_to_jax`; under ``zero1`` every
+rank gathers its slices into the global buckets and rank 0 writes them),
+so a run of either package resumes in the other.  ``try_resume``
+(``resume``) restores the newest verifiable checkpoint: at one process
+through the recovery chain, above one rank 0 decides (verifies,
+quarantines, steps back) and broadcasts the epoch or the error before any
+rank loads, so every rank restores the same state or raises the same
+typed error.  A mid-epoch checkpoint re-enters its epoch at the saved
+cursor; the dataset's ``set_state``, the manifest's ``lr_scale`` and the
+recorder's histories come back with it.  ``run`` joins the writer at the
+end (without letting its error hide one already raised) and drops the
+``dirty`` marker.
+
+Not carried by this slice, and refused rather than ignored: the elastic
+reshard (``resume_reshard``), telemetry, the resilience stack (fault
+plans, sentinel, watchdog, preemption), the profiler window and sharded
+meshes (:data:`NOT_PORTED_KEYS`).
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from theanompi_torch import dist as tdist
+from theanompi_torch.convert import train_state_from_jax, train_state_to_jax
 from theanompi_torch.models.data.base import derive_seed
 from theanompi_torch.models.data.prefetch import prefetch
 from theanompi_torch.parallel.exchanger import (
@@ -72,21 +94,26 @@ from theanompi_torch.parallel.exchanger import (
 )
 from theanompi_torch.parallel.mesh import resolve_device
 from theanompi_torch.tree import tree_leaves_with_path, tree_map
+from theanompi_torch.utils import checkpoint as ckpt_lib
 from theanompi_torch.utils.helper_funcs import import_model, to_device
 from theanompi_torch.utils.recorder import Recorder
 
 #: rule keys of the reference whose machinery is not ported yet: a config
 #: that sets one raises instead of training without it
 NOT_PORTED_KEYS = (
-    "checkpoint_dir", "checkpoint_keep", "checkpoint_async",
-    "checkpoint_verify", "checkpoint_every_n_iters", "resume",
-    "resume_force", "resume_reshard", "telemetry_dir",
+    "resume_reshard", "telemetry_dir",
     "telemetry_max_bytes", "telemetry_keep", "telemetry_health",
     "telemetry_blackbox", "telemetry_profile", "profile_dir",
     "profile_window", "fault_plan", "sentinel_policy",
     "sentinel_max_skips", "sentinel_max_rollbacks", "watchdog",
     "watchdog_multiple", "watchdog_min_s", "watchdog_poll_s",
     "heartbeat_path", "handle_preemption", "n_model", "n_seq", "n_pipe")
+
+
+#: the classes of a resume's error that every rank raises alike (the
+#: last stands for any other)
+_RESUME_ERRORS = (ckpt_lib.CheckpointChainExhausted,
+                  ckpt_lib.CheckpointFingerprintError, RuntimeError)
 
 
 def _leaves(tree) -> list:
@@ -209,7 +236,12 @@ class BaseTrainer:
 
     def __init__(self, model, device=None, recorder: Recorder | None = None,
                  seed: int = 0, prefetch_depth: int = 2,
-                 prefetch_stall_timeout: float | None = None):
+                 prefetch_stall_timeout: float | None = None,
+                 checkpoint_dir: str | None = None, checkpoint_keep: int = 3,
+                 checkpoint_async: bool = True,
+                 checkpoint_verify: str = "auto",
+                 checkpoint_every_n_iters: int = 0,
+                 resume_force: bool = False):
         self.model = model
         self.prefetch_depth = int(prefetch_depth)
         self.prefetch_stall_timeout = (
@@ -228,6 +260,34 @@ class BaseTrainer:
         self.opt_state = None
         self.epoch = 0
         self.iteration = 0
+        #: the lineage's LR factor, carried from a manifest (1.0 unless a
+        #: reshard, which the port does not carry yet, changed it)
+        self.lr_scale = 1.0
+        self._epoch_start_iter = 0
+        self._resume_data_state: dict | None = None
+        #: (epoch, the dataset's state as that epoch's batches start), taken
+        #: before its prefetcher's producer can run ahead of training
+        self._data_at_start: tuple[int, dict] | None = None
+        self._zero1_layout_cache = None
+        if checkpoint_verify not in ("auto", "fast", "full", "none"):
+            raise ValueError(f"checkpoint_verify must be auto/fast/full/"
+                             f"none, got {checkpoint_verify!r}")
+        self.checkpoint_verify = checkpoint_verify
+        self.checkpoint_every_n_iters = int(checkpoint_every_n_iters or 0)
+        if self.checkpoint_every_n_iters < 0:
+            raise ValueError(f"checkpoint_every_n_iters must be >= 0, got "
+                             f"{checkpoint_every_n_iters}")
+        self.checkpointer = None
+        if checkpoint_dir:
+            # every rank holds one (each reads the chosen file at a
+            # resume); rank 0 alone writes, sweeps and marks the directory
+            self.checkpointer = ckpt_lib.Checkpointer(
+                checkpoint_dir, keep=checkpoint_keep,
+                async_save=bool(checkpoint_async),
+                fingerprint=self._run_fingerprint,
+                resume_force=bool(resume_force), encode=self._encode,
+                decode=self._decode, writer=self.rank == 0,
+                verbose=self.recorder.verbose)
 
     # -- rule surface ---------------------------------------------------------
     def init_state(self) -> None:
@@ -236,6 +296,11 @@ class BaseTrainer:
     def _maybe_ramp(self, epoch: int) -> None:
         """Epoch-boundary hook, called at the top of each epoch (BSP swaps
         its exchanger by ``exch_ramp`` here)."""
+
+    def _fingerprint_extra(self) -> dict:
+        """Rule-specific fingerprint entries (BSP: the ramp and overlap
+        knobs)."""
+        return {}
 
     def compile_iter_fns(self) -> None:
         """Build the step closure around the rule's exchanger."""
@@ -279,7 +344,12 @@ class BaseTrainer:
     def _make_prefetcher(self, epoch: int, start_batch: int = 0):
         """The epoch's batches on this rank's device, ``prefetch_depth``
         ahead on a thread (0: the numpy iterator itself, placed in
-        :meth:`train_iter`).  Close it when done (``close``)."""
+        :meth:`train_iter`).  Close it when done (``close``).  Records the
+        dataset's state first: the producer exhausts the epoch's generator
+        (which advances the token stream's cursors) up to ``depth`` batches
+        before training reaches the end, so a save must not read the live
+        state while it runs."""
+        self._data_at_start = (epoch, self.model.data.state())
         return prefetch(self.train_batches(epoch, start_batch),
                         device=self.device, depth=self.prefetch_depth,
                         stall_timeout=self.prefetch_stall_timeout,
@@ -311,17 +381,213 @@ class BaseTrainer:
         self.recorder.val_metrics(epoch, **means)
         return means
 
+    # -- checkpoints ----------------------------------------------------------
+    def checkpoint_trees(self) -> dict:
+        """The named trees a checkpoint holds, live (the restore's
+        templates)."""
+        return {"params": self.params, "state": self.state,
+                "opt_state": self.opt_state}
+
+    def _zero1_layout(self):
+        """``zero1``'s bucket layout at this run's world (None for the
+        per-leaf strategies)."""
+        if not self.exchanger.fuses_update:
+            return None
+        if self._zero1_layout_cache is None:
+            self._zero1_layout_cache = self.exchanger.zero1_layout(
+                self.params, self.n_workers)
+        return self._zero1_layout_cache
+
+    def _encode(self, trees: dict) -> dict:
+        return train_state_to_jax(trees, zero1_layout=self._zero1_layout())
+
+    def _decode(self, arrays: dict, templates: dict) -> dict:
+        layout = self._zero1_layout()
+        return train_state_from_jax(
+            arrays, templates,
+            zero1=None if layout is None else (layout, self.rank,
+                                               self.n_workers))
+
+    def _run_fingerprint(self) -> dict:
+        """The run fingerprint of the manifests (the reference's :571):
+        the mesh (the process group as the reference's ``data`` axis, the
+        other axes 1), the exchange strategy, ``n_subb`` and the model's
+        identity, so a port run at N ranks matches a reference run on an
+        N-device mesh."""
+        return {
+            "mesh": {"data": self.n_workers, "pipe": 1, "model": 1,
+                     "seq": 1},
+            "exchange": getattr(self.exchanger, "strategy",
+                                type(self).__name__),
+            "n_subb": int(self.model.config.get("n_subb", 1) or 1),
+            **ckpt_lib.model_fingerprint(self.model),
+            **self._fingerprint_extra(),
+        }
+
+    def _data_state(self, epoch: int, completed: bool) -> dict:
+        """The data plane's position (the reference's :607): the cursor in
+        samples, and the dataset's own state (the token stream's cursors)
+        as the epoch a resume enters starts: ``epoch`` inside it, the next
+        after its end."""
+        cursor = max(0, self.iteration - self._epoch_start_iter)
+        enters = epoch + 1 if completed else epoch
+        if self._data_at_start is not None and \
+                self._data_at_start[0] == enters:
+            dataset = self._data_at_start[1]
+        else:
+            # the last epoch's end: no prefetcher runs ahead, the live
+            # state is the next epoch's start
+            dataset = self.model.data.state()
+        return {"version": 1, "epoch": int(epoch),
+                "completed": bool(completed), "batch_cursor": int(cursor),
+                "sample_cursor": int(cursor) * int(self.global_batch),
+                "global_batch": int(self.global_batch),
+                "seed": int(self.seed), "dataset": dataset}
+
+    def save_checkpoint(self, epoch: int, completed: bool = True):
+        """Start a save of the train state as epoch ``epoch``; -> its
+        handle on rank 0 (None elsewhere, or without a directory).
+        ``completed=False``: a save inside the epoch, whose manifest
+        carries the cursor a resume re-enters the epoch at.  Under
+        ``zero1`` above one rank every rank gathers the buckets first
+        (a collective), so every rank calls this."""
+        if self.checkpointer is None:
+            return None
+        trees = self.checkpoint_trees()
+        gathered = []
+        if self.exchanger.fuses_update and self.n_workers > 1:
+            trees["opt_state"] = self.exchanger.zero1_gather_opt_state(
+                trees["opt_state"])
+            if self.rank == 0:  # fresh buckets, this save's alone
+                gathered = [x for v in trees["opt_state"].values()
+                            if isinstance(v, list) for x in v]
+        if self.rank != 0:
+            return None
+        return self.checkpointer.save(
+            epoch, self.iteration, trees,
+            recorder_snapshot=self.recorder.history_snapshot(),
+            lr_scale=self.lr_scale,
+            data_state=self._data_state(epoch, completed),
+            handed_over=gathered)
+
+    def reserve_checkpoint_staging(self) -> None:
+        """Allocate the pinned host memory that rank 0's saves stage the
+        card's leaves through, before the first step: the first save's
+        snapshot then costs what the later ones do."""
+        if self.checkpointer is None or self.rank != 0:
+            return
+        trees = self.checkpoint_trees()
+        if self.exchanger.fuses_update:
+            trees["opt_state"] = self.exchanger.zero1_gathered_like(
+                trees["opt_state"])
+        self.checkpointer.reserve(trees)
+
+    def _resume_verify_level(self) -> str:
+        """``auto``: the full per-leaf hash after an unclean exit (the
+        ``dirty`` marker), the structural check otherwise."""
+        if self.checkpoint_verify != "auto":
+            return self.checkpoint_verify
+        return "full" if self.checkpointer.was_unclean() else "fast"
+
+    def try_resume(self) -> bool:
+        """Restore the newest verifiable checkpoint; -> resumed or not.
+        Call after ``init_state`` (the fresh state is the template).  Rank
+        0 alone runs the recovery chain (verify, quarantine, step back) and
+        restores; above one rank it then broadcasts the epoch it restored,
+        or the class of its error, and the other ranks read that epoch
+        unverified, or raise the same typed error, so none is left waiting
+        at the next collective.  An exhausted chain raises
+        ``CheckpointChainExhausted`` (the launcher's 77), another run's
+        checkpoint ``CheckpointFingerprintError`` (78) unless
+        ``resume_force``."""
+        ck = self.checkpointer
+        if ck is None:
+            return False
+        code, epoch, iteration, err, res = 0, -1, 0, None, None
+        if self.rank == 0:
+            try:
+                res = ck.load_latest_verified(
+                    self.checkpoint_trees(),
+                    verify=self._resume_verify_level())
+            except Exception as e:
+                if self.n_workers == 1:
+                    raise
+                err = e
+                code = next((i for i, c in enumerate(_RESUME_ERRORS, 1)
+                             if isinstance(e, c)), len(_RESUME_ERRORS))
+            if res is not None:
+                epoch, iteration, restored = res
+        if self.n_workers > 1:
+            agreed = torch.tensor([code, epoch, iteration],
+                                  dtype=torch.int64, device=self.device)
+            dist.broadcast(agreed, 0)
+            code, epoch, iteration = (int(x) for x in agreed.tolist())
+            if err is not None:
+                raise err
+            if code:
+                raise _RESUME_ERRORS[code - 1](
+                    "the resume failed on rank 0 (see its log)")
+        if epoch < 0:
+            return False
+        if self.rank == 0:
+            man = ck.last_loaded_manifest or {}
+        else:
+            restored = ck.load(epoch, self.checkpoint_trees(), verify="none")
+            man = ckpt_lib.read_manifest(ck._path(epoch))
+        for name, tree in restored.items():
+            setattr(self, name, tree)
+        ds = man.get("data_state")
+        if ds and not ds.get("completed", True):
+            # a save inside the epoch: re-enter it at the saved cursor
+            self.epoch = int(ds.get("epoch", epoch))
+            self._resume_data_state = dict(ds)
+        else:
+            self.epoch = epoch + 1
+        self.iteration = iteration
+        if ds and isinstance(ds.get("dataset"), dict) and ds["dataset"]:
+            # cursors that persist across epochs (the token stream's)
+            self.model.data.set_state(ds["dataset"])
+        self.lr_scale = float(man.get("lr_scale", 1.0) or 1.0)
+        self.recorder.load(ck.directory)
+        if self.recorder.verbose:
+            where = (f"mid-epoch {self.epoch} at batch "
+                     f"{self._resume_data_state['batch_cursor']}"
+                     if self._resume_data_state is not None
+                     else f"epoch {epoch}")
+            print(f"resumed from {where} (iteration {self.iteration})",
+                  flush=True)
+        return True
+
+    def _start_batch(self, epoch: int) -> int:
+        """The batch ``epoch`` starts at: a mid-epoch resume's cursor (in
+        samples, divided by this run's global batch), else 0; sets where
+        the epoch's steps are counted from."""
+        rds, self._resume_data_state = self._resume_data_state, None
+        start = 0
+        if rds is not None and int(rds.get("epoch", -1)) == epoch:
+            sc = int(rds.get("sample_cursor", 0))
+            start = sc // self.global_batch
+            if sc % self.global_batch:
+                print(f"trainer: resume sample cursor {sc} is not "
+                      f"divisible by the global batch {self.global_batch}; "
+                      f"flooring to batch {start} (the partial batch "
+                      f"replays)", file=sys.stderr, flush=True)
+        self._epoch_start_iter = self.iteration - start
+        return start
+
     def _run_epochs(self, stop=None) -> None:
         model = self.model
         batches = None
+        cad = self.checkpoint_every_n_iters
         try:
             for epoch in range(self.epoch, model.n_epochs):
                 self.epoch = epoch
                 self._maybe_ramp(epoch)
+                start_batch = self._start_batch(epoch)
                 self.recorder.start_epoch()
-                lr = model.adjust_hyperp(epoch)
+                lr = model.adjust_hyperp(epoch) * self.lr_scale
                 if batches is None:  # not built at the last boundary
-                    batches = self._make_prefetcher(epoch)
+                    batches = self._make_prefetcher(epoch, start_batch)
                 it = iter(batches)
                 try:
                     while True:
@@ -334,13 +600,21 @@ class BaseTrainer:
                             break
                         self.recorder.end("wait")
                         self.train_iter(batch, lr)
+                        if cad and (self.iteration
+                                    - self._epoch_start_iter) % cad == 0:
+                            # a save inside the epoch, superseded by the
+                            # next one and by the boundary's (same label)
+                            self.save_checkpoint(epoch, completed=False)
                 finally:
                     close_feed(batches)
                     batches = None
                 # the next epoch's queue fills while the host validates
+                # and the checkpoint's snapshot is taken
                 if epoch + 1 < model.n_epochs:
                     batches = self._make_prefetcher(epoch + 1)
                 val = self.validate(epoch)
+                self.save_checkpoint(epoch)
+                self._epoch_start_iter = self.iteration
                 self.epoch = epoch + 1
                 if stop is not None and stop(epoch, val):
                     break
@@ -356,8 +630,25 @@ class BaseTrainer:
             self.compile_iter_fns()
         if self.params is None:
             self.init_state()
+        ck = self.checkpointer
         try:
-            self._run_epochs(stop)
+            try:
+                self.reserve_checkpoint_staging()
+                self._run_epochs(stop)
+            except BaseException:
+                # the writer's error must not hide the one raised (often
+                # the same cause: a full disk)
+                if ck is not None:
+                    try:
+                        ck.join_pending()
+                    except Exception as e:
+                        print(f"checkpoint writer failed during teardown: "
+                              f"{e}", file=sys.stderr, flush=True)
+                raise
+            if ck is not None:
+                # joins the writer (raising its error), then drops the
+                # dirty marker: the next resume may trust the fast verify
+                ck.mark_clean()
             self.recorder.save()
         finally:
             self.model.cleanup()  # the loader pool's processes too
@@ -395,7 +686,7 @@ class Rule:
         if unported:
             raise NotImplementedError(
                 f"rule keys {unported} not yet ported (ROADMAP queue 1: "
-                f"checkpoints item 8, the resilience stack item 14, "
+                f"the reshard and the resilience stack item 14, "
                 f"telemetry item 15, sharded meshes item 13)")
         n = tdist.world()
         if devices is not None and devices != n:
@@ -415,7 +706,23 @@ class Rule:
         self.trainer = self.make_trainer(model, device, recorder)
         self.trainer.compile_iter_fns()
         self.trainer.init_state()
+        if self.config.get("resume"):
+            self.trainer.try_resume()
         return self
+
+    def trainer_kwargs(self) -> dict:
+        """The rule config's keys that every trainer takes."""
+        c = self.config
+        return {"seed": c.get("seed", 0),
+                "prefetch_depth": c.get("prefetch", 2),
+                "prefetch_stall_timeout": c.get("prefetch_stall_timeout"),
+                "checkpoint_dir": c.get("checkpoint_dir"),
+                "checkpoint_keep": c.get("checkpoint_keep", 3),
+                "checkpoint_async": c.get("checkpoint_async", True),
+                "checkpoint_verify": c.get("checkpoint_verify", "auto"),
+                "checkpoint_every_n_iters": c.get(
+                    "checkpoint_every_n_iters", 0),
+                "resume_force": bool(c.get("resume_force", False))}
 
     def wait(self):
         """Run training to completion; -> the recorder."""

@@ -4,8 +4,9 @@ Counterpart of ``theanompi_tpu/utils/recorder.py`` (``Recorder`` :25,
 ``write_history_snapshot``): ``start/end`` wall-clock segments (wait,
 calc, comm), train metrics averaged and printed every ``print_freq``
 iterations, per-epoch validation metrics, ``*_history.npy`` and
-``summary.json`` written to a record directory (reading them back comes
-with checkpoints and resume).  Metrics may be device
+``summary.json`` written to a record directory, and read back by
+``load`` (a resumed run's histories go on from the saved ones; the
+reference's files and the port's are the same).  Metrics may be device
 tensors: they are turned into host floats only at the print boundary,
 and ``end(..., fence=t)`` synchronizes the card only when a fence is
 given (the trainer passes one at print boundaries), so the calc/comm split
@@ -127,6 +128,23 @@ class Recorder:
         if path is None:
             return
         write_history_snapshot(self.history_snapshot(), path)
+
+    def load(self, path: str | None = None) -> None:
+        """Replace the histories with ``path``'s ``*_history.npy`` (the
+        reference's :159-177), values as plain Python numbers
+        (``tolist``), so a later save serializes them again."""
+        path = path or self.save_dir
+        if path is None:
+            return
+        for name, hist in (("time", self.time_history),
+                           ("train", self.train_history),
+                           ("val", self.val_history)):
+            p = os.path.join(path, f"{name}_history.npy")
+            if os.path.exists(p):
+                loaded = np.load(p, allow_pickle=True).item()
+                hist.clear()
+                hist.update({k: np.asarray(v).tolist()
+                             for k, v in loaded.items()})
 
 
 def write_history_snapshot(snapshot: dict, path: str) -> None:
