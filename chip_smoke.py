@@ -154,10 +154,36 @@ Phases (any failure exits non-zero and prints no result line):
    params' 64-bit checksums, the losses and the stream's cursors must be
    equal, and each flash kernel launched ``8 x 4`` times in each run.
 
+8. **Checkpoints and resume** through the launcher (``--ckpt``): the
+   transformer and ResNet-50 under ``zero1`` on two ranks, each saved,
+   resumed and held bit-equal to an uninterrupted run.
+
+9. **The rest of the model zoo** at the reference's ``default_config``
+   widths, bf16, each through ``BSP(...).init`` and ``.wait()`` (the
+   launcher's ``run_rank``): AlexNet (224², 1000 classes, LRN) at batch
+   128, VGG-16 (``fc_width`` 4096) at 64, GoogLeNet (``aux=True``, LRN) at
+   32, the PTB LSTM (650 x 2 layers, seq 35, the synthetic stream at
+   PTB's vocabulary 10000) at 32, DCGAN and WGAN (32², ``gen_base`` 128,
+   ``disc_base`` 64, z 100; WGAN ``n_critic`` 5) at 64; 6 steps and one
+   validation batch each (cut: steps).  Each step's loss and the
+   validation metrics must be finite and none of the five kernels
+   launched.  Printed: step ms p50 (``calc``), images or tokens/s, the
+   data plane's ``wait`` p50, peak memory.  Then one fp32 step at a small
+   batch on the card and on the CPU (and in float64 on the CPU), from
+   freshly seeded weights and from the bf16 run's master weights, state
+   and optimizer state, dropout 0 on both (the GAN's two steps under its
+   own optimizer, with the same ``z``): loss, grad norm (the GAN's
+   generator loss), new state, update and the activations' inputs within
+   the stated tolerances, the CPU's runs on the card's branch at every
+   ReLU and max-pool, and the kinks where that is not float64's counted.
+   First, the LSTM layer at the model's width: ATen's LSTM (cuDNN's in
+   fp32) against the plain loop, forward and grads, both timed.
+
 ``python3 chip_smoke.py --decode`` runs phase 1 and kernels 4 and 5 of
 phase 2 only, and prints no result line; ``--conv`` runs phases 1 and 5
-only, ``--bsp`` phases 1 and 6 only and ``--data`` phases 1 and 7 only,
-none of them printing a result line.
+only, ``--bsp`` phases 1 and 6 only, ``--data`` phases 1 and 7 only,
+``--ckpt`` phases 1 and 8 only and ``--zoo`` phases 1 and 9 only, none of
+them printing a result line.
 
 Output: the ``nvidia-smi`` line, one line per check, the serve reports,
 the training lines, the conv-net lines, the multi-rank lines, the data
@@ -166,7 +192,9 @@ plane's lines, then ``{"kernels": [...]}`` (each kernel's
 the stream-fed training run at ``prefetch=2`` (``train_stream_bf16``)
 and the multi-rank bf16 transformer runs summed over their ranks,
 ``train_bsp2_bf16`` under ``psum_bucket`` and its ``_overlap``,
-``_zero1`` and ``_zero1_overlap`` twins) and, last, ``{"ok": true,
+``_zero1`` and ``_zero1_overlap`` twins, the resumed run
+(``train_resume_bf16``) and the zoo's runs summed (``train_zoo_bf16``))
+and, last, ``{"ok": true,
 "device": {...}}``.  fp32 products run without TF32 throughout.
 """
 
@@ -1366,7 +1394,7 @@ def conv_parity(torch, trained):
     BN state and the updated params; and the same step in float64 on the
     CPU, which both fp32 steps are held to."""
     from theanompi_torch.models.resnet50 import ResNet50
-    from theanompi_torch.ops.opt import global_sq_norm
+    from theanompi_torch.ops.opt import SGD, global_sq_norm
     from theanompi_torch.parallel.mesh import Precision
     from theanompi_torch.parallel.trainer import loss_and_grads
     from theanompi_torch.tree import tree_leaves_with_path, tree_map
@@ -1381,7 +1409,8 @@ def conv_parity(torch, trained):
 
     def flat(tree):
         return torch.cat([x.double().flatten().cpu()
-                          for _, x in tree_leaves_with_path(tree)])
+                          for _, x in tree_leaves_with_path(tree)]
+                         or [torch.zeros(0, dtype=torch.float64)])
 
     out = {}
     for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
@@ -2220,6 +2249,473 @@ def ckpt_phase(torch, smi):
     return launches
 
 
+# -- phase 9: the rest of the model zoo ----------------------------------------
+
+#: the zoo at the reference's ``default_config`` widths, bf16: (label, module
+#: of ``theanompi_torch.models``, class, config over the defaults, what a
+#: step's rows are).  Steps are cut to ZOO_STEPS a model (the first holds
+#: cuDNN's warm-up) plus one validation batch; widths and depth are whole.
+#: The LSTM runs the synthetic stream at PTB's vocabulary (10000).
+ZOO = (
+    ("AlexNet", "alex_net", "AlexNet", {"batch_size": 128}, "images"),
+    ("VGG-16", "vggnet_16", "VGGNet_16", {"batch_size": 64}, "images"),
+    ("GoogLeNet", "googlenet", "GoogLeNet",
+     {"batch_size": 32, "aux": True}, "images"),
+    ("PTB LSTM", "lstm", "LSTM", {"batch_size": 32, "vocab": 10000},
+     "tokens"),
+    ("DCGAN", "dcgan", "DCGAN", {"batch_size": 64}, "images"),
+    ("WGAN", "dcgan", "WGAN", {"batch_size": 64}, "images"),
+)
+ZOO_STEPS = 6
+#: the card-against-CPU step (fp32, TF32 off, dropout 0 on both devices),
+#: from freshly seeded weights and from the bf16 run's checkpoint (its fp32
+#: master weights, state and optimizer state): the batch, and (loss, grad
+#: norm or the GAN's generator loss, new state, update) relative
+#: tolerances, phase 5's.  The CPU's runs take the card's branch at every
+#: ReLU and max-pool (:class:`_Branches`): at a kink, an input within
+#: rounding of 0 or a near-tie, fp32 runs may take either branch (cuDNN's
+#: default algorithms differ from run to run), and the grads jump by
+#: percents; a generator whose RMSProp state is tiny follows the jump (one
+#: such leaky-ReLU input in WGAN's critic put the card's update 6.43e-3
+#: from the CPU's, 5.1 lr at worst, in some runs: NVIDIA H100 80GB HBM3,
+#: 700 W)
+ZOO_PARITY_BATCH = {"images": 4, "tokens": 4}
+ZOO_PARITY_TOL = (1e-5, 1e-4, 1e-4, 5e-3)
+#: every ReLU's and leaky ReLU's input in the first step (the one from the
+#: same weights) held to the float64 run's, relative L2 distance at each
+#: site: the card's no farther than ZOO_EXACT[0] times the CPU's fp32 one
+#: plus this
+ZOO_ACT_TOL = 1e-5
+#: the step is also held to the same step in float64 on the CPU: the card's
+#: update no farther from it than twice the CPU's fp32 update, plus 1e-4
+ZOO_EXACT = (2.0, 1e-4)
+#: the GAN's losses are held relative to at least this: WGAN's are gaps
+#: between means of clipped critics' scores, near 0 (1e-3-1e-5)
+ZOO_LOSS_FLOOR = 1e-2
+#: the GAN's two steps (across WGAN's ``n_critic`` gate) under its own Adam
+#: or RMSProp, the update held per element to ``ZOO_GAN_ATOL * lr`` (the
+#: discriminator's at its ``lr * disc_lr_scale``), as in
+#: tests/test_torch_zoo_gan.py.  From fresh optimizer state the first step
+#: is ``lr * g / |g|`` elementwise: a grad element at the noise level of
+#: fp32 sums gets a full-size step whose sign the summation order decides,
+#: so at most ZOO_GAN_FLIPS of the elements may differ by more (the CPU's
+#: fp32 step differs so from the float64 one too)
+ZOO_GAN_ATOL = 2e-2
+ZOO_GAN_FLIPS = 1e-4
+#: the LSTM layer on the card, ATen's (cuDNN's in fp32) against the plain
+#: loop at the model's width: the output's and the grads' relative
+#: distances, per dtype (bf16: the two round the gates at other points)
+LSTM_FUSED_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+def _finite(xs) -> bool:
+    return all(x == x and abs(x) != float("inf") for x in xs)
+
+
+def zoo_config(spec, precision, batch, steps):
+    """One zoo model's config: the spec's over the defaults, ``steps``
+    training batches and one validation batch of ``batch``."""
+    _, _, _, over, unit = spec
+    cfg = {**over, "precision": precision, "batch_size": batch,
+           "n_train": steps * batch, "n_val": batch, "n_epochs": 1}
+    if unit == "images" and spec[1] != "dcgan":
+        cfg["shard_size"] = batch  # a step reads one synthetic shard
+    return cfg
+
+
+def zoo_run(torch, smi, spec, kernels, tmp):
+    """One zoo model in bf16 through the launcher (``python -m
+    theanompi_torch.launcher``'s ``main``, in this process), the five
+    kernels' counts zeroed just before and read just after; the step
+    times from the recorder's histories (``--record-dir``), the trained
+    state from the checkpoint it wrote (``--checkpoint-dir``, the
+    reference's leaves).  -> (launches, row, the checkpoint's leaves)."""
+    import statistics
+
+    import numpy as np
+
+    from theanompi_torch.launcher import main as launch
+    from theanompi_torch.utils.recorder import Recorder
+
+    label, mod, cls, over, unit = spec
+    batch = over["batch_size"]
+    cfg = zoo_config(spec, "bf16", batch, ZOO_STEPS)
+    record = os.path.join(tmp, mod + cls)
+    argv = ["--modelfile", f"theanompi_torch.models.{mod}", "--modelclass",
+            cls, "--rule-set", "print_freq=1", "--rule-set", "prefetch=0",
+            "--record-dir", record, "--checkpoint-dir", record, "--quiet"]
+    for k, v in cfg.items():
+        argv += ["--set", f"{k}={v!r}"]
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    code = launch(argv)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(code == 0, f"zoo[{label}]: the launcher exited {code}")
+    rec = Recorder(verbose=False)
+    rec.load(record)
+    losses = rec.train_history["cost"]
+    calc, wait = rec.time_history["calc"], rec.time_history["wait"]
+    p50 = statistics.median(calc)
+    rows = batch * (cfg.get("seq_len", 35) if unit == "tokens" else 1)
+    val = {k: v[-1] for k, v in rec.val_history.items()}
+    row = {"model": label, "batch": batch,
+           "step_ms_p50": p50 * 1e3, f"{unit}/s": rows / p50,
+           "wait_ms_p50": statistics.median(wait) * 1e3,
+           "peak_GiB": peak_gb}
+    print(f"zoo[{label}] bf16 {smi}: batch {batch}, launcher exit {code}, "
+          f"losses={losses} step_ms={[round(x * 1e3, 3) for x in calc]} "
+          f"step_ms_p50={p50 * 1e3:.3f} {unit}/s={rows / p50:.1f} "
+          f"wait_ms_p50={row['wait_ms_p50']:.3f} (the host data plane, "
+          f"outside the step) val={val} peak memory {peak_gb:.2f} GiB; "
+          f"launches of the five kernels {launches}", flush=True)
+    check(len(losses) == ZOO_STEPS and _finite(losses),
+          f"zoo[{label}]: losses {losses}")
+    check(val and _finite(val.values()), f"zoo[{label}]: validation {val}")
+    check(not any(launches.values()),
+          f"zoo[{label}]: the zoo's path launched {launches}")
+    with np.load(os.path.join(record, "ckpt_e0000.npz")) as f:
+        saved = {k: f[k] for k in f.files if "::" in k}
+    return launches, row, saved
+
+
+def _zoo_parity_model(spec):
+    """The model at the parity batch, fp32, dropout 0 (GoogLeNet's aux
+    heads hard-code 0.7), and its batch."""
+    from theanompi_torch.ops.layers import Dropout
+    from theanompi_torch.utils.helper_funcs import import_model
+
+    _, mod, cls, _, unit = spec
+    b = 8 if mod == "dcgan" else ZOO_PARITY_BATCH[unit]
+    cfg = zoo_config(spec, "fp32", b, 1)
+    cfg["dropout"] = 0.0
+    model = import_model(f"theanompi_torch.models.{mod}", cls)(cfg)
+    for net in (getattr(model, "net", None), getattr(model, "gen", None),
+                getattr(model, "disc", None)):
+        for m in (net.modules() if net is not None else ()):
+            if isinstance(m, Dropout):
+                m.rate = 0.0
+    return model, next(iter(model.data.train_batches(b, 0)))
+
+
+class _Branches:
+    """While on (the parity runs only), records every ReLU's and leaky
+    ReLU's input and every max-pool's argmax; with ``replay``, another
+    run's records, it also takes that run's branch at each: the same side
+    of 0 at each activation, the same argmax at each pool.  At a kink (an
+    input within rounding of 0, a near-tie) two fp32 runs of one step may
+    take other branches, and then their grads differ by the kink's jump,
+    not by rounding; on one set of branches they differ by rounding only."""
+
+    SLOPE = {"relu": 0.0, "leaky_relu": 0.2}
+
+    def __init__(self, replay=None):
+        self.rec, self.replay = [], replay
+        self.first = None  # the records of the first step (None: all)
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+
+        from theanompi_torch.ops import layers as L
+
+        self.acts, self.pool = dict(L.ACTIVATIONS), L.MaxPool.forward
+        rec, replay, acts, pool = self.rec, self.replay, self.acts, self.pool
+
+        def wrap(kind):
+            def act(x):
+                rec.append(("act", x.detach().double().cpu()))
+                if replay is None:
+                    return acts[kind](x)
+                side = replay.rec[len(rec) - 1][1].to(x.device) > 0
+                return torch.where(side, x, self.SLOPE[kind] * x)
+            return act
+
+        def maxpool(layer, params, x):
+            padded, sym = L._pad(x, layer._pads(x.shape[2:]),
+                                 value=float("-inf"))
+            idx = F.max_pool2d(padded.detach(), layer.window, layer.stride,
+                               sym, return_indices=True)[1]
+            rec.append(("pool", idx.cpu()))
+            if replay is None:
+                return pool(layer, params, x)
+            idx = replay.rec[len(rec) - 1][1].to(x.device)
+            return padded.flatten(2).gather(2, idx.flatten(2)).view(
+                idx.shape)
+
+        L.ACTIVATIONS.update({k: wrap(k) for k in self.SLOPE})
+        L.MaxPool.forward = maxpool
+        return self
+
+    def __exit__(self, *exc):
+        from theanompi_torch.ops import layers as L
+
+        L.ACTIVATIONS.update(self.acts)
+        L.MaxPool.forward = self.pool
+
+    def against(self, exact):
+        """-> (the kinks at which this run's branch is not the one that
+        ``exact``'s own arithmetic gives; the worst relative distance of
+        an activation's input in the first step, the one that starts from
+        the same weights)."""
+        kinks, worst = 0, 0.0
+        mine = self.replay.rec if self.replay else self.rec
+        for i, ((kind, a), (_, b), (_, m)) in enumerate(zip(
+                self.rec, exact.rec, mine, strict=True)):
+            if kind == "pool":
+                kinks += int((m != b).sum())
+                continue
+            kinks += int(((m > 0) != (b > 0)).sum())
+            if self.first is None or i < self.first:
+                worst = max(worst, float((a - b).norm()
+                                         / max(float(b.norm()), 1e-30)))
+        return kinks, worst
+
+
+def _zoo_gan_steps(torch, model, optimizer, params, state, opt_state,
+                   batch, zs, lr, flat, branches):
+    """The GAN's two steps of :func:`_zoo_parity_start` from the draws
+    ``zs`` (numpy), the ``n_critic`` gate and the critic's clip checked,
+    ``branches`` told where the first step ends: -> [(cost, generator
+    loss, new state, {net: update})] a step."""
+    from theanompi_torch.tree import tree_leaves_with_path
+
+    def same(a, b):
+        return all(torch.equal(x, y) for (_, x), (_, y) in zip(
+            tree_leaves_with_path(a), tree_leaves_with_path(b)))
+
+    cfg, label = model.config, type(model).__name__
+    x = model.prepare_x(batch["x"])
+    like = next(iter(tree_leaves_with_path(params)))[1]
+    steps = []
+    for step in range(2):
+        z1, z2 = (torch.from_numpy(z).to(like.device, like.dtype)
+                  for z in zs[2 * step:2 * step + 2])
+        new_params, state, new_opt, met = model.gan_step(
+            optimizer, params, state, opt_state, x, z1, z2, lr, step)
+        if cfg["wgan"]:
+            kept = step % cfg["n_critic"] != 0
+            check(not kept or (same(new_params["gen"], params["gen"])
+                               and same(new_opt["gen"], opt_state["gen"])),
+                  f"zoo parity[{label}]: the generator moved at step "
+                  f"{step}, inside the n_critic gate")
+            check(max(float(p.abs().max()) for _, p in
+                      tree_leaves_with_path(new_params["disc"]))
+                  <= cfg["clip"], f"zoo parity[{label}]: the critic is "
+                  f"not clipped at {cfg['clip']}")
+        steps.append((float(met["cost"]), float(met["g_loss"]), flat(state),
+                      {k: flat(new_params[k]) - flat(params[k])
+                       for k in ("gen", "disc")}))
+        params, opt_state = new_params, new_opt
+        branches.first = branches.first or len(branches.rec)
+    return steps
+
+
+def _zoo_parity_start(torch, spec, model, optimizer, batch, start, trees):
+    """One start of :func:`zoo_parity`: the step (the GAN's two) on the
+    card, on the CPU and in float64 on the CPU from ``trees`` (params,
+    state, optimizer state), and its checks."""
+    import numpy as np
+
+    from theanompi_torch.ops.opt import global_sq_norm
+    from theanompi_torch.parallel.mesh import Precision
+    from theanompi_torch.parallel.trainer import loss_and_grads
+    from theanompi_torch.tree import tree_leaves_with_path, tree_map
+    from theanompi_torch.utils.helper_funcs import to_device
+
+    label, cfg = spec[0], model.config
+    lr = model.adjust_hyperp(0)
+    gan = hasattr(model, "gan_step")
+    r = np.random.RandomState(0)
+    zs = [r.randn(len(batch["x"]), cfg["z_dim"]).astype(np.float32)
+          for _ in range(4)] if gan else []
+
+    def flat(tree):
+        return torch.cat([x.double().flatten().cpu()
+                          for _, x in tree_leaves_with_path(tree)]
+                         or [torch.zeros(0, dtype=torch.float64)])
+
+    out, branches, card = {}, {}, None
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                       ("cpu", torch.float64)):
+        model.precision = Precision(dtype)
+
+        def put(tree):
+            return tree_map(lambda x: x.to(dev, dtype)
+                            if x.is_floating_point() else x.to(dev), tree)
+
+        params, state, opt_state = (put(t) for t in trees)
+        b = to_device(batch, dev)
+        steps = []
+        # the CPU's runs take the card's branches
+        with _Branches(replay=card) as branches[dev, dtype]:
+            if gan:
+                steps = _zoo_gan_steps(torch, model, optimizer, params,
+                                       state, opt_state, b, zs, lr, flat,
+                                       branches[dev, dtype])
+            else:
+                new_state, met, grads = loss_and_grads(model, params, state,
+                                                       b, None)
+                with torch.no_grad():
+                    new_params, _ = optimizer.update(grads, opt_state,
+                                                     params, lr)
+                steps.append((float(met["cost"]),
+                              float(torch.sqrt(global_sq_norm(grads))),
+                              flat(new_state),
+                              flat(new_params) - flat(params)))
+        out[dev, dtype] = steps
+        card = card or branches[dev, dtype]
+    host, exact = (branches[k] for k in list(out)[1:])
+    kinks, act_c = card.against(exact)
+    act_h = host.against(exact)[1]
+    (c_runs, h_runs, e_runs) = out.values()
+    floor = ZOO_LOSS_FLOOR if gan else 0.0
+    for step, (c, h, e) in enumerate(zip(c_runs, h_runs, e_runs)):
+        (lc, gc, sc, uc), (lh, gh, sh, uh), (_, _, _, ue) = c, h, e
+        d = [abs(lc - lh) / max(abs(lh), floor),
+             abs(gc - gh) / max(abs(gh), floor),
+             float((sc - sh).norm() / sh.norm()) if sh.numel() else 0.0]
+        if gan:
+            uc, uh, ue = (torch.cat([u["gen"], u["disc"]])
+                          for u in (uc, uh, ue))
+            # each element against its net's lr
+            n_gen = c[3]["gen"].numel()
+            scale = torch.full_like(uc, lr * cfg["disc_lr_scale"])
+            scale[:n_gen] = lr
+            off = (uc - uh).abs() / scale
+            off_exact = int(((uh - ue).abs() / scale > ZOO_GAN_ATOL).sum())
+            n_off = int((off > ZOO_GAN_ATOL).sum())
+            allowed = int(ZOO_GAN_FLIPS * uc.numel()) if start == "fresh" \
+                else 0
+        d.append(float((uc - uh).norm() / max(float(uh.norm()), 1e-30)))
+        exact_c = float((uc - ue).norm() / ue.norm())
+        exact_h = float((uh - ue).norm() / ue.norm())
+        what = "generator loss" if gan else "grad norm"
+        line = (f"zoo parity[{label}, fp32, {start}"
+                + (f", step {step}" if gan else "") + f"] batch "
+                f"{len(batch['x'])}, card against CPU: loss {lc:.7g} / "
+                f"{lh:.7g} (rel {d[0]:.3g}, tol {ZOO_PARITY_TOL[0]:g}); "
+                f"{what} {gc:.7g} / {gh:.7g} (rel {d[1]:.3g}, tol "
+                f"{ZOO_PARITY_TOL[1]:g}); state |card-cpu|/|cpu| {d[2]:.3g} "
+                f"(tol {ZOO_PARITY_TOL[2]:g}); update {d[3]:.3g} (tol "
+                f"{ZOO_PARITY_TOL[3]:g}); update against the float64 CPU "
+                f"step: card {exact_c:.3g}, CPU fp32 {exact_h:.3g}; kinks "
+                f"where the card's branch, which the CPU's runs take, is "
+                f"not float64's: {kinks}; activations' inputs against it "
+                f"(first step): card {act_c:.3g}, CPU {act_h:.3g}")
+        if gan:
+            line += (f"; max |card-cpu| / lr {float(off.max()):.3g}, "
+                     f"elements beyond {ZOO_GAN_ATOL:g} lr: {n_off} of "
+                     f"{uc.numel()} (allowed {allowed}; CPU fp32 against "
+                     f"float64: {off_exact})")
+        print(line, flush=True)
+        check(all(x <= t for x, t in zip(d, ZOO_PARITY_TOL)),
+              f"zoo parity[{label}, {start}]: the card's step differs from "
+              f"the CPU's")
+        check(act_c <= ZOO_EXACT[0] * act_h + ZOO_ACT_TOL, f"zoo parity["
+              f"{label}, {start}]: an activation's input is farther from the "
+              f"float64 run's than the CPU's fp32 one")
+        check(exact_c <= ZOO_EXACT[0] * exact_h + ZOO_EXACT[1],
+              f"zoo parity[{label}, {start}]: the "
+              f"card's step is farther from the float64 step than the "
+              f"CPU's fp32 one")
+        if gan:
+            check(n_off <= allowed, f"zoo parity[{label}, {start}, step "
+                  f"{step}]: {n_off} update elements beyond "
+                  f"{ZOO_GAN_ATOL:g} lr")
+
+
+def zoo_parity(torch, spec, saved):
+    """The fp32 step (the GAN's two, across WGAN's ``n_critic`` gate, with
+    the same ``z``) on the card, on the CPU and in float64 on the CPU,
+    from freshly seeded weights and from the bf16 run's checkpoint
+    (``saved``, its leaves): loss, grad norm (the GAN: its generator
+    loss), new state, the update and the activations' inputs, the CPU's
+    runs on the card's branches.  -> the model's param count."""
+    from theanompi_torch.convert import train_state_from_jax
+    from theanompi_torch.tree import tree_leaves_with_path
+
+    model, batch = _zoo_parity_model(spec)
+    optimizer = model.build_optimizer()
+    weights, model_state = model.init_params(torch.Generator())
+    fresh = (weights, model_state,
+             model.init_opt_state(optimizer, weights))
+    restored = train_state_from_jax(saved, dict(zip(
+        ("params", "state", "opt_state"), fresh)))
+    for start, trees in (("fresh", fresh), ("trained", tuple(
+            restored[k] for k in ("params", "state", "opt_state")))):
+        _zoo_parity_start(torch, spec, model, optimizer, batch, start,
+                          trees)
+    return sum(x.numel() for _, x in tree_leaves_with_path(weights))
+
+
+def zoo_lstm_layer(torch, smi):
+    """The LSTM layer at the PTB model's width (B 32, T 35, 650 -> 650)
+    on the card: :func:`lstm_fused` (ATen's LSTM; cuDNN's in fp32)
+    against :func:`lstm_loop`, forward and grads, and both timed
+    (forward + backward, CUDA events)."""
+    from theanompi_torch.ops.layers import lstm_fused, lstm_loop
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        def rand(*shape, scale=1.0):
+            return (torch.randn(shape, generator=g, device="cuda")
+                    * scale).to(dtype).requires_grad_()
+
+        x = rand(32, 35, 650)
+        ws = (rand(650, 2600, scale=0.04), rand(650, 2600, scale=0.04),
+              rand(2600, scale=0.1))
+        gy = torch.randn((32, 35, 650), generator=g, device="cuda").to(dtype)
+        outs, ms = [], {}
+        for fn in (lstm_fused, lstm_loop):
+            def run(fn=fn):
+                y = fn(x, *ws)
+                return [y] + list(torch.autograd.grad(y, [x, *ws], gy))
+
+            outs.append([t.float() for t in run()])
+            ms[fn.__name__] = time_ms(run, iters=10)
+        rel = [float((a - b).norm() / b.norm()) for a, b in zip(*outs)]
+        tol = LSTM_FUSED_TOL[_dname(dtype)]
+        print(f"zoo lstm layer[{_dname(dtype)}] {smi}: B=32 T=35 D=H=650, "
+              f"fused against the loop, rel (out, dx, dwx, dwh, db) "
+              f"{[f'{v:.3g}' for v in rel]} (tol {tol:g}); forward + "
+              f"backward ms: fused {ms['lstm_fused']:.4f}, loop "
+              f"{ms['lstm_loop']:.4f}", flush=True)
+        check(max(rel) <= tol, f"zoo lstm layer[{_dname(dtype)}]: the fused "
+              f"LSTM differs from the loop ({rel})")
+
+
+def zoo_phase(torch, smi, kernels):
+    """Phase 9: the LSTM layer's two paths, then each zoo model in bf16
+    at full width through the launcher and its fp32 card-against-CPU
+    step.  -> the runs' summed launches (``train_zoo_bf16``)."""
+    import gc
+
+    import shutil
+    import tempfile
+
+    zoo_lstm_layer(torch, smi)
+    total = {k.name: 0 for k in kernels}
+    rows = []
+    tmp = tempfile.mkdtemp(prefix="zoo-")
+    try:
+        for spec in ZOO:
+            launches, row, saved = zoo_run(torch, smi, spec, kernels,
+                                           tmp)
+            for k, v in launches.items():
+                total[k] += v
+            rows.append(row)
+            gc.collect()
+            torch.cuda.empty_cache()
+            row["params_M"] = zoo_parity(torch, spec, saved) / 1e6
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("zoo table " + json.dumps(rows), flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2283,6 +2779,10 @@ def main() -> int:
         # development run: phase 8 only, no result line
         ckpt_phase(torch, smi)
         return 0
+    if "--zoo" in sys.argv[1:]:
+        # development run: phase 9 only, no result line
+        zoo_phase(torch, smi, K.KERNELS)
+        return 0
     if "--decode" in sys.argv[1:]:
         # development run: kernels 4 and 5 only, no result line
         checks = {"paged_decode": check_paged(torch),
@@ -2334,6 +2834,8 @@ def main() -> int:
     stream_launches = data_phase(torch, smi, K.KERNELS)
     # -- phase 8 -----------------------------------------------------------
     resume_launches = ckpt_phase(torch, smi)
+    # -- phase 9 -----------------------------------------------------------
+    zoo_launches = zoo_phase(torch, smi, K.KERNELS)
 
     # the serving slice's kernels report their serve run; the flash
     # kernels the training run, which launches all three
@@ -2345,6 +2847,7 @@ def main() -> int:
                         "train_stream_bf16": stream_launches[k.name],
                         "train_resume_bf16": resume_launches.get(k.name,
                                                                  0),
+                        "train_zoo_bf16": zoo_launches[k.name],
                         **{path: got[k.name]
                            for path, got in bsp_launches.items()}}
                for k in K.KERNELS}

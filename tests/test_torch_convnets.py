@@ -143,7 +143,7 @@ def test_logits_loss_grads_and_state(name):
     tp, ts = params_from_jax(_np(jp)), state_from_jax(_np(js))
     tb = to_device(batch, "cpu")
     with torch.no_grad():
-        tlogits, _ = tm.apply_net(tp, ts, tm.prepare_x(tb["x"]), True)
+        tlogits, _, _ = tm.apply_net(tp, ts, tm.prepare_x(tb["x"]), True)
     _assert_tree({"logits": tlogits}, {"logits": logits}, "logits",
                  convert=_host, scale=SCALE[name])
     tstate, tmet, tg = loss_and_grads(tm, tp, ts, tb, None)
@@ -234,8 +234,8 @@ def test_space_to_depth_stem_equals_conv7():
     batch = to_device(next(iter(plain.data.train_batches(4, 0))), "cpu")
     with torch.no_grad():
         x = plain.prepare_x(batch["x"])
-        a, sa = plain.apply_net(params, state, x, True)
-        b, sb = s2d.apply_net(p2, state, x, True)
+        a, _, sa = plain.apply_net(params, state, x, True)
+        b, _, sb = s2d.apply_net(p2, state, x, True)
     # the two stems sum in other orders: the tiny ResNet's scale (SCALE)
     _assert_tree({"logits": b}, _host({"logits": a}), "logits",
                  convert=_host, scale=SCALE["resnet50"])
@@ -278,7 +278,7 @@ def test_convert_round_trip(name):
             assert pa == pb
             np.testing.assert_array_equal(a, b)
     with pytest.raises(KeyError, match="no port layer"):
-        params_from_jax({"00_lstm": {}})
+        params_from_jax({"00_moeffn": {}})
 
 
 def test_launcher_trains_tiny_resnet50_on_cpu_only_when_asked(

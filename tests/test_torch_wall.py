@@ -2,8 +2,8 @@
 default.
 
 - a fresh interpreter imports the port's serving and training stacks
-  (the BSP rule, the launcher, the losses, the conv nets and their data
-  planes, the process groups and the ranks' jobs, the native crop, the
+  (the BSP rule, the launcher, the losses, the conv nets, the zoo
+  (AlexNet, VGG, GoogLeNet, the LSTM, DCGAN) and their data planes, the process groups and the ranks' jobs, the native crop, the
   prefetcher, the loader pool and the token stream, the checkpoints and
   the exit codes and event log) and ``chip_smoke.py`` (as a module), and
   runs the checkpoint scrubber (``--verify``) on an empty directory,
@@ -53,6 +53,11 @@ def test_import_wall_in_a_fresh_interpreter():
         "import theanompi_torch.ops.losses\n"
         "import theanompi_torch.models.resnet50\n"
         "import theanompi_torch.models.wide_resnet\n"
+        "import theanompi_torch.models.alex_net\n"
+        "import theanompi_torch.models.vggnet_16\n"
+        "import theanompi_torch.models.googlenet\n"
+        "import theanompi_torch.models.lstm\n"
+        "import theanompi_torch.models.dcgan\n"
         "import theanompi_torch.models.data.imagenet\n"
         "import theanompi_torch.models.data.cifar10\n"
         "import theanompi_torch.dist, theanompi_torch.parallel.rank_jobs\n"

@@ -8,21 +8,23 @@ under :mod:`theanompi_torch.kernels`.
 Slice 1 serves the dense ``TransformerLM`` end to end; slice 2 trains it
 through the BSP rule on one card (:class:`BSP`, ``python -m
 theanompi_torch.launcher``); slice 10 trains the conv nets, ResNet-50 and
-the Wide-ResNet, through the same rule:
+the Wide-ResNet, through the same rule, and slice 17 the rest of the zoo
+(AlexNet, VGG-16/11, GoogLeNet, the PTB LSTM, DCGAN/WGAN):
 
 - :mod:`theanompi_torch.parallel.mesh` — ``Precision`` policies and the
   device rule (``resolve_device``);
 - :mod:`theanompi_torch.ops` — initializers, ``Dense``/``LayerNorm``/
-  ``Embedding``, the conv nets' layers (``Conv2D``, the pools,
-  ``BatchNorm``, ``Sequential``), the int8 weight format and matmul
+  ``Embedding``, the conv nets' layers (``Conv2D``, ``ConvTranspose2D``,
+  the pools, ``BatchNorm``, ``LRN``, ``Sequential``), ``LSTM``, the int8 weight format and matmul
   (kernel 5), flash attention forward (kernel 1), paged decode attention
   (kernel 4) and the attention layer;
 - :mod:`theanompi_torch.models.contract` — the model contract
   (``Model``, ``SupervisedModel``), params and state;
 - :mod:`theanompi_torch.models.transformer_lm` — the model's training and
   serving paths, on :mod:`theanompi_torch.models.lstm`'s ``PTBData``;
-- :mod:`theanompi_torch.models.resnet50` and
-  :mod:`theanompi_torch.models.wide_resnet` — the conv nets, on
+- :mod:`theanompi_torch.models.resnet50`,
+  :mod:`theanompi_torch.models.wide_resnet`, ``alex_net``,
+  ``vggnet_16``, ``googlenet`` and ``dcgan`` — the conv nets, on
   :mod:`theanompi_torch.models.data.imagenet` and
   :mod:`theanompi_torch.models.data.cifar10`;
 - the data plane: the trainer's prefetcher

@@ -8,9 +8,19 @@ The reference's trees (nested dicts of arrays, handed over as numpy) map
   ``NN__block/{ln1, attn/{q,k,v,o}, ln2, up, down}``, the final
   ``NN_layernorm`` and ``head``;
 - the conv nets: ``00_conv2d`` or ``00__spacetodepthstem``,
-  ``NN_batchnorm``, ``NN__wrnblock/...``, ``NN__bottleneck/...`` and
-  ``NN_dense``; their state (BatchNorm's ``mean``/``var``) under the
-  same keys.
+  ``NN_batchnorm``, ``NN__wrnblock/...``, ``NN__bottleneck/...``,
+  ``NN__inception/b0..b3/...`` and ``NN_dense``, GoogLeNet with aux heads
+  as ``seg0..2`` and ``aux0..1``; their state (BatchNorm's
+  ``mean``/``var``) under the same keys;
+- the LSTM LM: ``00_embedding``, ``NN_lstm/{wx, wh, b}`` (2-D, as they
+  are), ``NN_dense``;
+- the GAN: ``gen`` and ``disc``, each a Sequential's tree (the
+  generator's ``NN_convtranspose2d`` kernels take the generic 4-D
+  transpose too: the layer flips and swaps them for
+  ``F.conv_transpose2d`` itself), and an optimizer state per network.
+
+Only the top-level key is checked: one that no port layer carries
+raises ``KeyError``.
 
 Layouts: conv kernels are the one leaf that changes.  The reference holds
 them HWIO ``[kh, kw, in, out]``, the port OIHW ``[out, in, kh, kw]``
@@ -51,7 +61,10 @@ from theanompi_torch.utils.checkpoint import flat_leaves, restore_into
 
 _TOP_KEY = re.compile(
     r"^(\d{2}_(embedding|positionembedding|_block|layernorm|conv2d|"
-    r"batchnorm|_wrnblock|_bottleneck|_spacetodepthstem|dense)|head)$")
+    r"batchnorm|_wrnblock|_bottleneck|_spacetodepthstem|dense|lstm|"
+    r"_inception|convtranspose2d)|head|seg\d|aux\d|gen|disc)$")
+#: the GAN's two networks, each with an optimizer state of its own
+_GAN_NETS = ("gen", "disc")
 #: HWIO -> OIHW, and back
 _TO_OIHW, _TO_HWIO = (3, 2, 0, 1), (2, 3, 1, 0)
 
@@ -147,8 +160,10 @@ def _relayout(buf: np.ndarray, bucket, to_port: bool) -> np.ndarray:
 
 def opt_state_to_jax(opt_state: dict) -> dict:
     """A per-leaf optimizer state of the port (params-shaped trees and
-    replicated scalars) -> the reference's (numpy; conv kernels HWIO)."""
-    return {k: params_to_jax(v) if isinstance(v, dict) else _to_jax(v)
+    replicated scalars; the GAN's ``{"gen": ..., "disc": ...}``, one
+    each) -> the reference's (numpy; conv kernels HWIO)."""
+    return {k: opt_state_to_jax(v) if k in _GAN_NETS else
+            params_to_jax(v) if isinstance(v, dict) else _to_jax(v)
             for k, v in opt_state.items()}
 
 
@@ -156,7 +171,8 @@ def opt_state_from_jax(opt_state: dict) -> dict:
     """The reference's per-leaf optimizer state -> the port's (CPU
     tensors; conv kernels OIHW): the inverse of
     :func:`opt_state_to_jax`."""
-    return {k: params_from_jax(v) if isinstance(v, dict) else _tensor(v)
+    return {k: opt_state_from_jax(v) if k in _GAN_NETS else
+            params_from_jax(v) if isinstance(v, dict) else _tensor(v)
             for k, v in opt_state.items()}
 
 

@@ -61,7 +61,7 @@ class Model:
         )
 
     def init_opt_state(self, optimizer, params):
-        """Optimizer-state layout (GANs would split it per network)."""
+        """Optimizer-state layout (the GAN splits it per network)."""
         return optimizer.init(params)
 
     # -- what the trainer runs ----------------------------------------------
@@ -100,7 +100,14 @@ class SupervisedModel(Model):
     "y": [B] int}``, NHWC as the data planes yield them; :meth:`prepare_x`
     turns ``x`` into the compute dtype and the NCHW view the layers take
     (token batches, integer ``x``, pass as they are).
-    Auxiliary heads (GoogLeNet's) come with those models."""
+
+    Auxiliary heads (GoogLeNet's): :meth:`apply_net` returns
+    their logits beside the main ones in training, and ``loss_fn`` adds
+    each head's cross entropy at ``aux_loss_weight`` before ``l2``; the
+    models without heads return none, and their loss is unchanged."""
+
+    #: weight on auxiliary-head losses (train-time only; GoogLeNet paper §5)
+    aux_loss_weight = 0.3
 
     def __init__(self, config=None):
         super().__init__(config)
@@ -114,8 +121,12 @@ class SupervisedModel(Model):
         return params, state
 
     def apply_net(self, params, state, x, train: bool, gen=None):
-        """-> (logits, new_state)."""
-        return self.net.apply_stateful(params, state, x, train, gen)
+        """-> (logits, aux_logits, new_state): ``aux_logits`` a tuple of
+        the auxiliary heads' logits (empty here; GoogLeNet's with
+        ``aux=True`` in training)."""
+        logits, new_state = self.net.apply_stateful(params, state, x, train,
+                                                    gen)
+        return logits, (), new_state
 
     def prepare_x(self, x):
         """A batch's ``x`` on the device, as the reference's
@@ -142,12 +153,17 @@ class SupervisedModel(Model):
 
     def loss_fn(self, params, state, batch, gen, train: bool):
         """-> (loss, (new_state, metrics ``cost/error/error_top5``)); the
-        loss adds ``l2 * |params|^2`` when the config sets ``l2``."""
+        loss adds the auxiliary heads' cross entropies at
+        ``aux_loss_weight``, then ``l2 * |params|^2`` when the config sets
+        ``l2``."""
         x = self.prepare_x(batch["x"])
         cp = self.precision.cast_to_compute(params)
-        logits, new_state = self.apply_net(cp, state, x, train, gen)
+        logits, aux_logits, new_state = self.apply_net(
+            cp, state, x, train, gen)
         y = batch["y"]
         loss = softmax_cross_entropy(logits, y)
+        for a in aux_logits:
+            loss = loss + self.aux_loss_weight * softmax_cross_entropy(a, y)
         if self.config.get("l2", 0.0):
             loss = loss + self.config["l2"] * global_sq_norm(params)
         err5 = (top_k_error(logits, y, k=5) if logits.shape[-1] >= 5

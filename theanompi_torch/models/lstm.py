@@ -1,12 +1,18 @@
-"""PTB-style token data: the LM models' data plane.
+"""The PTB word-level LSTM language model and its token data.
 
-Counterpart of ``theanompi_tpu/models/lstm.py``'s ``PTBData`` (:32): a
-contiguous token stream chopped into ``[B, T]`` next-token batches.  Real
-PTB loads from ``config["data_path"]`` or ``$PTB_PATH`` (a directory with
+Counterpart of ``theanompi_tpu/models/lstm.py``: ``PTBData`` (:32), a
+contiguous token stream chopped into ``[B, T]`` next-token batches, and
+``LSTM`` (:90), embedding -> ``n_layers`` x (dropout, LSTM) -> dropout
+-> dense over the vocabulary, with the reference's param tree
+(``00_embedding``, ``NN_lstm/{wx, wh, b}``, ``NN_dense``) and its
+``perplexity`` metric (``exp`` of the cost); ``grad_clip`` (5.0) clips
+the global norm in the optimizer.  Real PTB loads from
+``config["data_path"]`` or ``$PTB_PATH`` (a directory with
 ``ptb.train.txt``/``ptb.valid.txt``); otherwise the synthetic bigram
 stream of :class:`SyntheticSequenceDataset` stands in, with the
-reference's seed, so both packages see the same arrays.  The LSTM model
-itself comes with a later slice.
+reference's seed, so both packages see the same arrays.  The recurrence
+runs as :func:`theanompi_torch.ops.layers.lstm_fused` (ATen's LSTM;
+cuDNN's in fp32 on the card).
 """
 
 from __future__ import annotations
@@ -15,11 +21,14 @@ import os
 
 import numpy as np
 
+from theanompi_torch.models.contract import SupervisedModel
 from theanompi_torch.models.data.base import (
     Dataset,
     SyntheticSequenceDataset,
     sequence_batches,
 )
+from theanompi_torch.ops import initializers as init_lib
+from theanompi_torch.ops import layers as L
 
 
 def ptb_path(config: dict) -> str | None:
@@ -83,3 +92,44 @@ class PTBData(Dataset):
     def val_batches(self, batch_size: int, rows=None):
         return sequence_batches(self._val_seqs, self.n_val, batch_size,
                                 rows=rows)
+
+
+class LSTM(SupervisedModel):
+    """PTB-style LM.  ``error`` is next-word top-1 error; ``perplexity``
+    = exp(cost), the reference's headline LM metric."""
+
+    default_config = {
+        "batch_size": 32,
+        "n_epochs": 13,
+        "lr": 1.0,        # the tutorial-era SGD schedule
+        "lr_decay_epochs": (4, 6, 8, 10, 12),
+        "lr_decay_factor": 0.5,
+        "momentum": 0.0,
+        "seq_len": 35,
+        "hidden": 650,
+        "n_layers": 2,
+        "embed_dim": 650,
+        "dropout": 0.5,
+        "grad_clip": 5.0,
+    }
+
+    def build_data(self):
+        return PTBData(self.config)
+
+    def build_net(self):
+        cfg = self.config
+        vocab = self.data.vocab
+        layers: list[L.Layer] = [
+            L.Embedding(vocab, cfg["embed_dim"],
+                        w_init=init_lib.uniform(0.1))]
+        for _ in range(cfg["n_layers"]):
+            layers += [L.Dropout(cfg["dropout"]), L.LSTM(cfg["hidden"])]
+        layers += [L.Dropout(cfg["dropout"]),
+                   L.Dense(vocab, w_init=init_lib.glorot_normal)]
+        return L.Sequential(layers), (cfg["seq_len"],)
+
+    def loss_fn(self, params, state, batch, gen, train: bool):
+        loss, (new_state, metrics) = super().loss_fn(params, state, batch,
+                                                     gen, train)
+        return loss, (new_state, {**metrics,
+                                  "perplexity": metrics["cost"].exp()})

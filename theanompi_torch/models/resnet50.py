@@ -13,7 +13,7 @@ arithmetic run in cuDNN and PyTorch's own kernels: the reference wrote no
 kernel for this model.
 
 ``remat="save_convs"`` (the reference's recompute of the BN-ReLU chain in
-the backward) is not ported yet and raises (ROADMAP queue 1 item 6).
+the backward) is not ported yet and raises (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -152,7 +152,7 @@ class ResNet50(SupervisedModel):
                              f"'save_convs')")
         if cfg["remat"] == "save_convs":
             raise NotImplementedError(
-                "remat='save_convs' not yet ported (ROADMAP queue 1 item 6)")
+                "remat='save_convs' not yet ported (ROADMAP queue 1 item 9)")
         stem = (_SpaceToDepthStem(64) if cfg["stem"] == "space_to_depth"
                 else L.Conv2D(64, 7, stride=2, padding=3, use_bias=False))
         layers: list[L.Layer] = [

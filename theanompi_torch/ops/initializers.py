@@ -1,8 +1,9 @@
 """Weight initializers on an explicit ``torch.Generator``.
 
 Counterparts of ``theanompi_tpu/ops/initializers.py``'s ``normal``,
-``he_normal`` and ``glorot_normal``: ``fn(generator, shape, dtype) ->
-tensor`` on the generator's device.  The bits differ from ``jax.random`` by
+``uniform``, ``he_normal``, ``glorot_normal``, ``glorot_uniform`` and
+``orthogonal``: ``fn(generator, shape, dtype) -> tensor`` on the
+generator's device.  The bits differ from ``jax.random`` by
 design; tests that need the reference's weights convert them
 (:mod:`theanompi_torch.convert`).
 """
@@ -51,6 +52,17 @@ def normal(stddev=0.01, mean=0.0):
     return init
 
 
+def uniform(scale=0.01):
+    """Uniform on ``[-scale, scale)``."""
+
+    def init(gen, shape, dtype=torch.float32):
+        u = torch.rand(tuple(shape), generator=gen, dtype=dtype,
+                       device=gen.device)
+        return (2.0 * u - 1.0) * scale
+
+    return init
+
+
 def he_normal(gen, shape, dtype=torch.float32):
     fan_in, _ = _fans(shape)
     return _randn(gen, shape, dtype) * math.sqrt(2.0 / fan_in)
@@ -59,3 +71,29 @@ def he_normal(gen, shape, dtype=torch.float32):
 def glorot_normal(gen, shape, dtype=torch.float32):
     fan_in, fan_out = _fans(shape)
     return _randn(gen, shape, dtype) * math.sqrt(2.0 / (fan_in + fan_out))
+
+
+def glorot_uniform(gen, shape, dtype=torch.float32):
+    fan_in, fan_out = _fans(shape)
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    u = torch.rand(tuple(shape), generator=gen, dtype=dtype,
+                   device=gen.device)
+    return (2.0 * u - 1.0) * limit
+
+
+def orthogonal(scale=1.0):
+    """Orthogonal init (the LSTM's recurrent kernel): the Q of a gaussian
+    matrix's QR, signs fixed by R's diagonal, over the flattened leading
+    dims against the last."""
+
+    def init(gen, shape, dtype=torch.float32):
+        if len(shape) < 2:
+            raise ValueError("orthogonal init needs >= 2 dims")
+        rows, cols = math.prod(shape[:-1]), shape[-1]
+        mat = _randn(gen, (max(rows, cols), min(rows, cols)), dtype)
+        q, r = torch.linalg.qr(mat)
+        q = q * torch.sign(torch.diagonal(r))
+        q = q.T if rows < cols else q
+        return scale * q[:rows, :cols].reshape(tuple(shape))
+
+    return init

@@ -1,12 +1,14 @@
 """The layer library: the transformer's ``Dense``, ``Dropout``,
-``LayerNorm`` and ``Embedding``, and the conv nets' ``Activation``,
-``Conv2D``, ``MaxPool``/``AvgPool``, ``GlobalAvgPool``, ``Flatten``,
-``BatchNorm`` and ``Sequential``.
+``LayerNorm`` and ``Embedding``, the conv nets' ``Activation``,
+``Conv2D``, ``ConvTranspose2D``, ``MaxPool``/``AvgPool``,
+``GlobalAvgPool``, ``Flatten``, ``BatchNorm``, ``LRN`` and
+``Sequential``, and the ``LSTM`` layer.
 
 Counterparts of ``theanompi_tpu/ops/layers.py`` (``Activation`` :78,
-``Dense`` :86, ``Conv2D`` :112, ``_Pool`` :208, ``GlobalAvgPool`` :263,
-``Flatten`` :273, ``Dropout`` :284, ``BatchNorm`` :297, ``LayerNorm``
-:359, ``Embedding`` :412, ``Sequential`` :473).  Each layer is an
+``Dense`` :86, ``Conv2D`` :112, ``ConvTranspose2D`` :167, ``_Pool``
+:208, ``GlobalAvgPool`` :263, ``Flatten`` :273, ``Dropout`` :284,
+``BatchNorm`` :297, ``LayerNorm`` :359, ``LRN`` :384, ``Embedding`` :412,
+``LSTM`` :427, ``Sequential`` :473).  Each layer is an
 ``nn.Module`` that holds its configuration; its weights live in a param
 tree passed to ``forward`` (the ``torch.func.functional_call`` style),
 keyed exactly as the reference's tree, so a converted checkpoint, the int8
@@ -286,6 +288,78 @@ class Conv2D(Layer):
                         self.stride, sym, self.dilation, self.groups)
 
 
+def _conv_transpose_pads(size_k: int, stride: int, padding):
+    """``lax.conv_transpose``'s pads of the stride-dilated input on one
+    spatial dim, for ``"SAME"`` and ``"VALID"`` (a pair passes as it
+    is)."""
+    k, s = size_k, stride
+    if padding == "SAME":
+        total = k + s - 2
+        before = k - 1 if s > k - 1 else -(-total // 2)
+    elif padding == "VALID":
+        total = k + s - 2 + max(k - s, 0)
+        before = k - 1
+    else:
+        return tuple(padding)
+    return before, total - before
+
+
+class ConvTranspose2D(Layer):
+    """Transposed convolution (DCGAN's generator), the reference's
+    ``lax.conv_transpose`` without ``transpose_kernel``: a plain
+    convolution of the stride-dilated input with ``w`` as it is, no
+    spatial flip and no swap of in and out.  ``w`` is stored as
+    ``Conv2D``'s, OIHW ``[filters, C, kh, kw]`` (what the converter's
+    generic HWIO -> OIHW transpose makes of the reference's ``(kh, kw, C,
+    filters)``), and handed to ``F.conv_transpose2d`` — the gradient of a
+    convolution, which flips the kernel in space and takes ``[C, filters,
+    kh, kw]`` — flipped and swapped here.  ``padding``: ``"SAME"`` (the
+    output is ``stride`` times the input), ``"VALID"`` or pairs
+    ``((top, bottom), (left, right))`` of the dilated input."""
+
+    def __init__(self, filters: int, kernel=4, stride=2, padding="SAME",
+                 use_bias: bool = True, w_init=init_lib.he_normal,
+                 b_init=init_lib.zeros):
+        super().__init__()
+        self.filters = filters
+        self.kernel = _pair(kernel)
+        self.stride = _pair(stride)
+        self.padding = padding
+        self.use_bias = use_bias
+        self.w_init = w_init
+        self.b_init = b_init
+
+    def _pads(self):
+        pads = (self.padding if not isinstance(self.padding, str)
+                else (self.padding,) * 2)
+        return tuple(_conv_transpose_pads(k, s, p) for k, s, p in zip(
+            self.kernel, self.stride, pads))
+
+    def init(self, gen, in_shape):
+        c, h, w = in_shape
+        params = {"w": self.w_init(gen, (self.filters, c, *self.kernel))}
+        if self.use_bias:
+            params["b"] = self.b_init(gen, (self.filters,))
+        out = tuple((n - 1) * s + 1 + sum(p) - k + 1 for n, s, p, k in zip(
+            (h, w), self.stride, self._pads(), self.kernel))
+        return params, (self.filters, *out)
+
+    def forward(self, params, x):
+        w = params["w"].to(x.dtype).flip(2, 3).transpose(0, 1)
+        b = params["b"].to(x.dtype) if self.use_bias else None
+        (t, bt), (lf, r) = self._pads()
+        kh, kw = self.kernel
+        if t == bt and lf == r and t <= kh - 1 and lf <= kw - 1:
+            # at padding p, conv_transpose2d pads the dilated input by
+            # k - 1 - p a side
+            return F.conv_transpose2d(x, w, b, self.stride,
+                                      (kh - 1 - t, kw - 1 - lf))
+        # uneven pads: pad k - 1 a side, then crop (or zero-pad) the output
+        y = F.conv_transpose2d(x, w, None, self.stride)
+        y = F.pad(y, (lf - kw + 1, r - kw + 1, t - kh + 1, bt - kh + 1))
+        return y if b is None else y + b.reshape(1, -1, 1, 1)
+
+
 class _Pool(Layer):
     def __init__(self, window=2, stride=None, padding="VALID"):
         super().__init__()
@@ -419,6 +493,97 @@ class BatchNorm(StatefulLayer):
         y = (x * inv.to(x.dtype).reshape(shape)
              + shift.to(x.dtype).reshape(shape))
         return y, new_state
+
+
+class LRN(Layer):
+    """Across-channel local response normalization (AlexNet, GoogLeNet):
+    ``x / (k + alpha / size * S)^beta``, ``S`` the sum of ``x^2`` over a
+    window of ``size`` channels, the channel dim (1) zero-padded by
+    ``size // 2`` on both sides; computed in fp32 and cast back, as the
+    reference's windowed sum."""
+
+    def __init__(self, size: int = 5, alpha: float = 1e-4,
+                 beta: float = 0.75, k: float = 2.0):
+        super().__init__()
+        self.size = size
+        self.alpha = alpha
+        self.beta = beta
+        self.k = k
+
+    def forward(self, params, x):
+        xf = x.float()
+        half = self.size // 2
+        sq = F.pad(xf.square(), (0, 0) * (x.ndim - 2) + (half, half))
+        window = sq.unfold(1, self.size, 1).sum(dim=-1)
+        y = xf / torch.pow(self.k + (self.alpha / self.size) * window,
+                           self.beta)
+        return y.to(x.dtype)
+
+
+def _forget_bias(hidden: int, like: torch.Tensor) -> torch.Tensor:
+    """The ``+1.0`` on the forget gate (gate order i, f, g, o) as a
+    ``[4H]`` bias."""
+    one = like.new_zeros(4 * hidden)
+    one[hidden:2 * hidden] = 1.0
+    return one
+
+
+def lstm_loop(x, wx, wh, b):
+    """The reference's recurrence (``lax.scan``), step by step: ``x [B,
+    T, D] -> h [B, T, H]`` from zero state; the input projection
+    ``x @ wx + b`` hoisted out of the loop, gates ``i, f, g, o``, the
+    forget gate ``sigmoid(f + 1)``.  The plain version that
+    :func:`lstm_fused`, the layer's path, is held to."""
+    hidden = wh.shape[0]
+    xproj = x @ wx + b
+    h = x.new_zeros((x.shape[0], hidden))
+    c = x.new_zeros((x.shape[0], hidden))
+    hs = []
+    for t in range(x.shape[1]):
+        i, f, g, o = (xproj[:, t] + h @ wh).chunk(4, dim=-1)
+        c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def lstm_fused(x, wx, wh, b):
+    """The same recurrence through ATen's LSTM (``torch._VF.lstm``:
+    cuDNN's for fp32 on the card, ATen's fused cell otherwise), whose gate
+    order is also ``i, f, g, o``: ``wx``/``wh`` go in transposed, ``b`` as
+    the input bias and the forget gate's ``+1`` as the hidden bias, built
+    here, so the params stay the reference's."""
+    hidden = wh.shape[0]
+    h0 = x.new_zeros((1, x.shape[0], hidden))
+    weights = [wx.t().contiguous(), wh.t().contiguous(), b,
+               _forget_bias(hidden, b)]
+    out, _, _ = torch._VF.lstm(x, (h0, h0), weights, True, 1, 0.0,
+                               torch.is_grad_enabled(), False, True)
+    return out
+
+
+class LSTM(Layer):
+    """One LSTM layer over ``[B, T, D] -> [B, T, H]``: ``wx [D, 4H]``,
+    ``wh [H, 4H]``, ``b [4H]`` (the reference's leaves and inits), run
+    by :func:`lstm_fused` on every device."""
+
+    def __init__(self, hidden: int, w_init=init_lib.glorot_uniform,
+                 r_init=init_lib.orthogonal()):
+        super().__init__()
+        self.hidden = hidden
+        self.w_init = w_init
+        self.r_init = r_init
+
+    def init(self, gen, in_shape):
+        t, d = in_shape
+        h4 = 4 * self.hidden
+        return ({"wx": self.w_init(gen, (d, h4)),
+                 "wh": self.r_init(gen, (self.hidden, h4)),
+                 "b": init_lib.zeros(gen, (h4,))}, (t, self.hidden))
+
+    def forward(self, params, x):
+        wx, wh, b = (params[k].to(x.dtype) for k in ("wx", "wh", "b"))
+        return lstm_fused(x, wx, wh, b)
 
 
 class Sequential(StatefulLayer):

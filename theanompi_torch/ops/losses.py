@@ -1,7 +1,8 @@
 """Losses and error metrics, and the fused chunked LM cross entropy.
 
-Counterpart of ``theanompi_tpu/ops/losses.py``: ``softmax_cross_entropy``
-and ``top_k_error`` (ties count against the model: ``>=``), and
+Counterpart of ``theanompi_tpu/ops/losses.py``: ``softmax_cross_entropy``,
+``sigmoid_binary_cross_entropy`` (the GAN's), ``top_k_error`` (ties
+count against the model: ``>=``), and
 ``fused_lm_xent``, the LM head matmul fused into a softmax cross entropy
 that streams the ``[N, V]`` scores in token chunks and never stores them.
 Its forward keeps only the per-token logsumexp; its backward recomputes
@@ -22,13 +23,27 @@ from __future__ import annotations
 import torch
 
 
+def _wide(x):
+    """``x`` in fp32, or as it is where it is wider (a float64 check)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def softmax_cross_entropy(logits, labels):
     """Mean cross entropy over int class ids ``labels`` (``[B]`` or
-    ``[B, T]``), computed in fp32 whatever the logits' dtype."""
-    logits = logits.float()
+    ``[B, T]``), computed in fp32 or wider whatever the logits' dtype."""
+    logits = _wide(logits)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     return (logz - gold).mean()
+
+
+def sigmoid_binary_cross_entropy(logits, targets):
+    """Mean binary cross entropy on raw logits, in fp32 or wider:
+    ``max(l, 0) - l t + log1p(exp(-|l|))``."""
+    logits = _wide(logits)
+    targets = targets.to(logits.dtype)
+    return (torch.clamp(logits, min=0.0) - logits * targets
+            + torch.log1p(torch.exp(-logits.abs()))).mean()
 
 
 def top_k_error(logits, labels, k: int = 1):

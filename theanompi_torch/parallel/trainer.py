@@ -34,6 +34,10 @@ exchange (``ring_int8``'s rounding) draws from its own per-rank stream,
 ``EXCHANGE_RNG_TAG``).  Device syncs happen only at print boundaries and
 in validation.  Only rank 0 prints and saves the recorder.
 
+A model that supplies ``make_custom_step`` (the GAN) owns its inner
+step (:103-130); the rule keeps the metrics' and the state's mean, and
+refuses ``n_subb``, ``zero1`` and overlap for it.
+
 Under ``zero1`` (``exchanger.fuses_update``) the exchange is the update
 (:170-178): :meth:`Exchanger.exchange_and_update` takes the grads, the
 optimizer state and the params.  With ``exchanger.overlap`` at a world
@@ -134,19 +138,27 @@ def _dropout_gen(device, seed: int, *key):
     return gen
 
 
-def loss_and_grads(model, params, state, batch, gen, hooks=None):
-    """-> (new_state, metrics, grads) of one forward + backward
-    (``train=True``; ``gen`` the dropout generator or None).  ``hooks``: a
+def value_and_grads(loss_of, params, hooks=None):
+    """-> (loss, aux, grads of the loss against ``params``), where
+    ``loss_of(params) -> (loss, aux)``.  ``hooks``: a
     :class:`BucketExchange` to arm on the differentiated leaves, so the
     exchange's collectives go out from backward."""
     leaves = [p.detach().requires_grad_() for p in _leaves(params)]
     tree = _unflatten(params, leaves)
     if hooks is not None:
         hooks.arm(flatten(tree))
-    loss, (new_state, metrics) = model.loss_fn(tree, state, batch, gen,
-                                               train=True)
-    return (new_state, metrics,
-            _unflatten(params, torch.autograd.grad(loss, leaves)))
+    loss, aux = loss_of(tree)
+    return loss, aux, _unflatten(params, torch.autograd.grad(loss, leaves))
+
+
+def loss_and_grads(model, params, state, batch, gen, hooks=None):
+    """-> (new_state, metrics, grads) of one forward + backward
+    (``train=True``; ``gen`` the dropout generator or None; ``hooks`` as
+    :func:`value_and_grads`'s)."""
+    _, (new_state, metrics), grads = value_and_grads(
+        lambda p: model.loss_fn(p, state, batch, gen, train=True), params,
+        hooks)
+    return new_state, metrics, grads
 
 
 def _accumulated_grads(model, params, state, batch, seed, step, device,
@@ -183,6 +195,37 @@ def _accumulated_grads(model, params, state, batch, seed, step, device,
     return state, metrics, grads
 
 
+def _custom_step(model, optimizer, exchanger, seed: int, n_subb: int):
+    """The step of a model that supplies its own inner step
+    (``make_custom_step(optimizer, seed, exchanger)``, the GAN's two
+    updates; the reference's :103-130): the inner step does the
+    forwards, backwards, exchanges and updates, the rule the mean of the
+    metrics and the state over the ranks.  ``n_subb > 1``, ``zero1`` and
+    overlap need the standard grad step and are refused (``ValueError``,
+    the launcher's 78)."""
+    who = f"{type(model).__name__} supplies make_custom_step"
+    if n_subb > 1:
+        raise ValueError(f"n_subb={n_subb} requires the standard grad step; "
+                         f"{who}")
+    if exchanger.fuses_update:
+        raise ValueError(f"exch_strategy 'zero1' requires the standard grad "
+                         f"step; {who}")
+    if exchanger.overlap:
+        raise ValueError(f"exch_overlap requires the standard grad step; "
+                         f"{who}")
+    inner = model.make_custom_step(optimizer, seed, exchanger)
+
+    def custom_step(params, state, opt_state, batch, lr, step):
+        new_params, new_state, new_opt_state, metrics = inner(
+            params, state, opt_state, batch, lr, step)
+        with torch.no_grad():
+            metrics = fused_pmean(metrics)
+            new_state = fused_pmean(new_state)
+        return new_params, new_state, new_opt_state, metrics
+
+    return custom_step
+
+
 def make_train_step(model, optimizer, exchanger, seed: int, device):
     """The per-step function: ``step(params, state, opt_state, batch, lr,
     step) -> (new_params, new_state, new_opt_state, metrics)`` — loss and
@@ -191,8 +234,12 @@ def make_train_step(model, optimizer, exchanger, seed: int, device):
     from backward), the exchange and the optimizer update (one call under
     ``zero1``) under ``torch.no_grad``, then the float metrics and the new
     model state averaged over the ranks (one collective a dtype; already
-    equal under sync-BN, the mean repairs drift otherwise)."""
+    equal under sync-BN, the mean repairs drift otherwise).  A model with
+    ``make_custom_step`` runs its own inner step instead
+    (:func:`_custom_step`)."""
     n_subb = int(model.config.get("n_subb", 1) or 1)
+    if hasattr(model, "make_custom_step"):
+        return _custom_step(model, optimizer, exchanger, seed, n_subb)
 
     def train_step(params, state, opt_state, batch, lr, step):
         xseed = derive_seed("exchange", seed, step, *tdist.replica_key())
