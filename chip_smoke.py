@@ -179,11 +179,34 @@ Phases (any failure exits non-zero and prints no result line):
    First, the LSTM layer at the model's width: ATen's LSTM (cuDNN's in
    fp32) against the plain loop, forward and grads, both timed.
 
+10. **Serving what the launcher trained** — phase 8's transformer (phase
+   4's at full width, bf16, 3 steps an epoch) trained 2 epochs through
+   ``python -m theanompi_torch.launcher --checkpoint-dir``; its epoch 0,
+   published alone into a second directory, served through the CLI's
+   ``serve`` with ``--checkpoint-dir`` at phase 3's traffic in bf16 and
+   with ``--quantize-int8``: the served epoch must be 0, every request
+   ``done``, flash forward, paged decode and (int8) the int8 matmul
+   launched, and the restored weights held against the plain engine with
+   phase 3's limits.  Two replicas as processes of their own, at once:
+   one serves a ``--queue-file`` to its drain sentinel, each rid in its
+   ``REQUESTS.jsonl`` exactly once; the other takes SIGTERM while serving
+   and must exit 0 within ``--drain-s``.  In process, on the kernel path:
+   a ``RolloutManager`` (full verify) adopts epoch 1 in the middle of
+   phase 3's traffic (8 sequences preempted and replayed), 8 further
+   requests run at the new weights and are held against the plain path;
+   a copy of epoch 1 with a leaf's byte flipped, published as epoch 2, is
+   refused while epoch 1 keeps serving; an injected critical verdict
+   rolls back to epoch 0's tree bit for bit, and the card's allocated
+   bytes return to what they were before the swap.  Printed: each run's
+   tokens/s, TTFT and decode-step p50, the adopting poll's and the
+   rollback's host ms.
+
 ``python3 chip_smoke.py --decode`` runs phase 1 and kernels 4 and 5 of
 phase 2 only, and prints no result line; ``--conv`` runs phases 1 and 5
 only, ``--bsp`` phases 1 and 6 only, ``--data`` phases 1 and 7 only,
-``--ckpt`` phases 1 and 8 only and ``--zoo`` phases 1 and 9 only, none of
-them printing a result line.
+``--ckpt`` phases 1 and 8 only, ``--zoo`` phases 1 and 9 only and
+``--serve-ckpt`` phases 1 and 10 only, none of them printing a result
+line.
 
 Output: the ``nvidia-smi`` line, one line per check, the serve reports,
 the training lines, the conv-net lines, the multi-rank lines, the data
@@ -193,7 +216,9 @@ the stream-fed training run at ``prefetch=2`` (``train_stream_bf16``)
 and the multi-rank bf16 transformer runs summed over their ranks,
 ``train_bsp2_bf16`` under ``psum_bucket`` and its ``_overlap``,
 ``_zero1`` and ``_zero1_overlap`` twins, the resumed run
-(``train_resume_bf16``) and the zoo's runs summed (``train_zoo_bf16``))
+(``train_resume_bf16``), the zoo's runs summed (``train_zoo_bf16``) and
+phase 10's serving runs from the checkpoint (``serve_ckpt_bf16``,
+``serve_ckpt_int8``) and the rollout's drive (``serve_rollout_bf16``))
 and, last, ``{"ok": true,
 "device": {...}}``.  fp32 products run without TF32 throughout.
 """
@@ -204,6 +229,7 @@ import itertools
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -946,19 +972,26 @@ def _same_weights(a, b):
     return True
 
 
-def serve_run(torch, precision, quant, smi, kernels):
+def serve_run(torch, precision, quant, smi, kernels, ckpt=None):
     """One full-width run of the CLI's ``serve`` (the ``python -m
     theanompi_torch.serving`` entry point), with every kernel's launch
     count zeroed just before it and read just after; then the parity of
-    the same weights against the plain path.  -> (launches, report)."""
+    the same weights against the plain path.  ``ckpt``: serve the
+    checkpoint directory of phase 10 (``--checkpoint-dir``, its model
+    config) instead of the seeded random init.  -> (launches, report)."""
     from theanompi_torch.models.transformer_lm import TransformerLM
     from theanompi_torch.serving import InferenceEngine
     from theanompi_torch.serving.cli import build_parser, serve
+    from theanompi_torch.utils.checkpoint import load_for_inference
 
-    tag = f"{precision}{'+int8' if quant else ''}"
-    cfg = {**SERVE_CFG, "precision": precision}
+    tag = f"{'ckpt ' if ckpt else ''}{precision}{'+int8' if quant else ''}"
+    cfg = (dict(CKPT_TRAIN_CFG) if ckpt
+           else {**SERVE_CFG, "precision": precision})
+    check(cfg["precision"] == precision, f"{tag}: the config is "
+          f"{cfg['precision']}")
     argv = [a for k, v in cfg.items() for a in ("--set", f"{k}={v!r}")]
     argv += SERVE_ARGS + (["--quantize-int8"] if quant else [])
+    argv += ["--checkpoint-dir", ckpt] if ckpt else []
     args = build_parser().parse_args(argv)
     done = {}
     for k in kernels:
@@ -968,6 +1001,9 @@ def serve_run(torch, precision, quant, smi, kernels):
     launches = {k.name: k.launches for k in kernels}
     check(report["decode_kernel"] == "kernel", f"{tag}: decode kernel not "
           f"taken ({report['decode_kernel']})")
+    if ckpt:
+        check(report["checkpoint_epoch"] == 0, f"{tag}: served epoch "
+              f"{report['checkpoint_epoch']}, expected 0")
     check(len(done) == args.requests
           and all(r.state == "done" for r in done.values()),
           f"{tag}: not every request done: {report['terminal_states']}")
@@ -982,10 +1018,13 @@ def serve_run(torch, precision, quant, smi, kernels):
           f"generated_tokens={report['generated_tokens']}", flush=True)
     print(f"serve_report[{tag}] {json.dumps(report)}", flush=True)
 
-    # the CLI's weights again (its seeded init), through the kernel path
-    # and through the plain one
+    # the CLI's weights again (its seeded init, or the checkpoint restored
+    # into it), through the kernel path and through the plain one
     params, _ = TransformerLM(cfg).init_params(
         torch.Generator().manual_seed(args.seed))
+    if ckpt:
+        params = load_for_inference(ckpt, {"params": params},
+                                    model=TransformerLM(cfg))[2]["params"]
     geometry = dict(block_size=args.block_size, max_batch=args.max_batch,
                     quantize_int8=quant, seed=args.seed)
     kernel = InferenceEngine(TransformerLM(cfg), params, **geometry)
@@ -994,9 +1033,18 @@ def serve_run(torch, precision, quant, smi, kernels):
     check(plain.decode_impl == "fallback", "plain engine took a kernel")
     check(_same_weights(kernel.params, plain.params),
           f"{tag}: the plain engine's weights differ")
-    reqs = [done[i] for i in sorted(done)]
+    serve_parity(tag, precision, kernel, plain,
+                 [done[i] for i in sorted(done)], args.max_new_tokens)
+    return launches, report
+
+
+def serve_parity(tag, precision, kernel, plain, reqs, n_new):
+    """The kernel engine's first-token logits against the plain engine's
+    on the same weights (within ``rel`` x max|plain|), and the plain
+    engine's teacher-forced greedy agreement with the kernel path's
+    streams ``reqs`` (>= ``AGREE_MIN``)."""
     err, scale = first_token_logits(kernel, plain, reqs)
-    agree, total = teacher_forced(plain, reqs, args.max_new_tokens)
+    agree, total = teacher_forced(plain, reqs, n_new)
     rate = agree / total
     rel = 0.05 if precision == "bf16" else 1e-3
     tol = rel * scale
@@ -1008,7 +1056,6 @@ def serve_run(torch, precision, quant, smi, kernels):
     dname = "bfloat16" if precision == "bf16" else "float32"
     check(rate >= AGREE_MIN[dname], f"{tag}: greedy agreement {rate:.4f} "
           f"< {AGREE_MIN[dname]}")
-    return launches, report
 
 
 # -- phase 4: the training path ------------------------------------------------
@@ -2716,6 +2763,307 @@ def zoo_phase(torch, smi, kernels):
     return total
 
 
+# -- phase 10: serving what the launcher trained ---------------------------------
+
+#: phase 8's transformer (phase 4's at full width, bf16, 3 steps an epoch,
+#: 1 validation batch), trained 2 epochs through the launcher; epoch 0 is
+#: served, epoch 1 is the rollout's candidate
+SERVE_CKPT_EPOCHS = 2
+#: the rollout drive: the swap after this many decode steps of phase 3's
+#: traffic (8 sequences active), then 8 requests more at the new weights
+SWAP_AT_STEP = 8
+#: queue replica: requests of 100-400 tokens, 16 new tokens each
+QUEUE_REQUESTS = 8
+#: the SIGTERM drain's budget
+DRAIN_S = 20.0
+#: card bytes an idle engine may differ by after a swap and its rollback
+SWAP_MEM_SLACK = 1 << 20
+
+
+def _copy_epoch(src, dst, epoch, as_epoch=None):
+    """Publish ``src``'s epoch into ``dst`` the writer's way: the ``.npz``
+    first, then its manifest (what the rollout discovers), each through a
+    temporary name and ``os.replace``."""
+    import shutil
+
+    as_epoch = epoch if as_epoch is None else as_epoch
+    for ext in (".npz", ".manifest.json"):
+        tmp = os.path.join(dst, f"incoming{ext}")
+        shutil.copy(os.path.join(src, f"ckpt_e{epoch:04d}{ext}"), tmp)
+        os.replace(tmp, os.path.join(dst, f"ckpt_e{as_epoch:04d}{ext}"))
+
+
+def _serving_argv():
+    return [a for k, v in CKPT_TRAIN_CFG.items()
+            for a in ("--set", f"{k}={v!r}")]
+
+
+def _engine_snapshot(params):
+    """Each leaf of an engine tree, copied on the card (bf16 engine: no
+    int8 leaves)."""
+    from theanompi_torch.tree import tree_leaves_with_path
+
+    return {"/".join(map(str, p)): x.clone()
+            for p, x in tree_leaves_with_path(params)}
+
+
+def serve_rollout(torch, smi, kernels, src, d):
+    """In-process: the engine serves epoch 0 of ``d`` on the kernel path; a
+    ``RolloutManager`` adopts epoch 1 in the middle of phase 3's traffic
+    (the active sequences preempted and replayed), 8 further requests
+    run at the new weights and are held against the plain path; a
+    candidate with a leaf's byte flipped is refused while epoch 1 keeps
+    serving; an injected critical verdict rolls back to epoch 0's tree bit
+    for bit, and the card's allocated bytes come back to what they were.
+    -> the launches of the drive (``serve_rollout_bf16``)."""
+    import numpy as np
+
+    from theanompi_torch.models.transformer_lm import TransformerLM
+    from theanompi_torch.serving import (
+        InferenceEngine,
+        RolloutManager,
+        Scheduler,
+        run_open_loop,
+    )
+    from theanompi_torch.serving.cli import build_parser, synthetic_requests
+    from theanompi_torch.utils.checkpoint import load_for_inference
+
+    args = build_parser().parse_args(_serving_argv() + SERVE_ARGS)
+    cfg = dict(CKPT_TRAIN_CFG)
+    model = TransformerLM(cfg)
+    template, _ = model.init_params(torch.Generator().manual_seed(0))
+    ep0, _, trees = load_for_inference(d, {"params": template}, model=model)
+    check(ep0 == 0, f"rollout: {d} serves epoch {ep0}")
+    geometry = dict(block_size=args.block_size, max_batch=args.max_batch,
+                    seed=args.seed)
+    engine = InferenceEngine(model, trees["params"], **geometry)
+    sched = Scheduler(engine)
+    first = engine.params
+    before = _engine_snapshot(first)
+    clock = [0.0]
+    verdicts = []
+    mgr = RolloutManager(engine, d, {"params": template}, model=model,
+                         verify="full", current_epoch=0, poll_s=0.0,
+                         probation_s=3600.0,
+                         health_verdicts=lambda: verdicts,
+                         clock=lambda: clock[0])
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    _copy_epoch(src, d, 1)
+    swap = {}
+
+    def between(s):
+        if "ms" not in swap and s.n_steps == SWAP_AT_STEP:
+            swap["active"] = s.n_active
+            t0 = time.perf_counter()
+            swap["outcome"] = mgr.poll(s)
+            torch.cuda.synchronize()
+            swap["ms"] = (time.perf_counter() - t0) * 1e3
+
+    reqs = synthetic_requests(
+        args.requests, model.vocab, args.prompt_len, args.max_new_tokens,
+        0.0, args.seed, turns=args.turns)
+    after = synthetic_requests(
+        8, model.vocab, args.prompt_len, args.max_new_tokens, 0.0,
+        args.seed + 1)
+    for r in after:
+        r.rid += len(reqs)
+    for k in kernels:
+        k.launches = 0
+    res_a, wall_a = run_open_loop(sched, reqs, between_steps=between)
+    res_b, wall_b = run_open_loop(sched, after)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    check(swap.get("outcome") == "rollout" and mgr.current_epoch == 1,
+          f"rollout: epoch 1 not adopted ({swap}, serving epoch "
+          f"{mgr.current_epoch})")
+    check(sched.n_preemptions >= swap["active"] > 0, f"rollout: "
+          f"{swap['active']} active at the swap, {sched.n_preemptions} "
+          f"preempted")
+    served = list(res_a.values()) + list(res_b.values())
+    check(len(served) == len(reqs) + len(after)
+          and all(r.state == "done" for r in served),
+          "rollout: not every request done across the swap")
+    for name in ("flash_fwd", "paged_decode"):
+        check(launches[name] > 0, f"rollout: {name} never launched on the "
+              f"swapped weights ({launches})")
+    n_tok = sum(len(r.generated) for r in served)
+    print(f"serve_rollout {smi}: adopted epoch 1 at decode step "
+          f"{SWAP_AT_STEP} with {swap['active']} active (preempted "
+          f"{sched.n_preemptions}); swap host ms (poll: full verify, load, "
+          f"to the card, preempt) {swap['ms']:.3f}; {n_tok} tokens in "
+          f"{wall_a + wall_b:.3f} s; decode_step_ms p50 "
+          f"{float(np.percentile(sched.step_ms, 50)):.3f}; launches "
+          f"{launches}", flush=True)
+
+    # the kernel path against the plain path at the new weights
+    _, _, new = load_for_inference(d, {"params": template}, model=model)
+    plain = InferenceEngine(TransformerLM({**cfg, "attn_impl": "blockwise"}),
+                            new["params"], decode_kernel="off", **geometry)
+    check(_same_weights(engine.params, plain.params),
+          "rollout: the engine does not serve epoch 1's weights")
+    serve_parity("rollout bf16", "bf16", engine, plain,
+                 [res_b[r.rid] for r in after], args.max_new_tokens)
+    del plain, new
+
+    # a candidate with one leaf byte flipped: refused, epoch 1 serves on
+    _copy_epoch(src, d, 1, as_epoch=2)
+    flip_leaf_byte(os.path.join(d, "ckpt_e0002.npz"), "params::head/w.npy")
+    swapped = engine.params
+    check(mgr.poll(sched) == "refused" and mgr.n_refused == 1
+          and engine.params is swapped and mgr.current_epoch == 1,
+          "rollout: the flipped candidate was not refused")
+    check(os.path.exists(os.path.join(d, "ckpt_e0002.npz"))
+          and not os.path.exists(os.path.join(d, "corrupt")),
+          "rollout: the refused candidate was moved")
+    res_c, _ = run_open_loop(sched, synthetic_requests(
+        2, model.vocab, args.prompt_len, 8, 0.0, args.seed + 2))
+    check(all(r.state == "done" for r in res_c.values()),
+          "rollout: serving stopped after the refusal")
+
+    # a critical verdict inside probation: back to epoch 0, bit for bit
+    verdicts.append({"detector": "slo", "severity": "critical"})
+    clock[0] = 1.0
+    t0 = time.perf_counter()
+    check(mgr.poll(sched) == "rollback" and mgr.current_epoch == 0,
+          "rollout: the critical verdict did not roll back")
+    torch.cuda.synchronize()
+    back_ms = (time.perf_counter() - t0) * 1e3
+    got = _engine_snapshot(engine.params)
+    same = engine.params is first and all(
+        torch.equal(before[k], got[k]) for k in before)
+    del swapped, got
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    print(f"serve_rollout {smi}: refused the flipped epoch 2 "
+          f"(n_refused {mgr.n_refused}); rolled back to epoch 0 in "
+          f"{back_ms:.3f} host ms, bit-equal {same}; card allocated bytes "
+          f"{mem0} before the swap, {mem1} after the rollback", flush=True)
+    check(same, "rollout: the rollback did not restore epoch 0's tree")
+    check(abs(mem1 - mem0) <= SWAP_MEM_SLACK, f"rollout: {mem1 - mem0} "
+          f"bytes of the card still held after the rollback")
+    return launches
+
+
+def _serve_child(argv, log):
+    """``python -m theanompi_torch.serving`` from the checkout."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "theanompi_torch.serving", *argv],
+        cwd=HERE, env={**os.environ, "PYTHONPATH": HERE},
+        stdout=subprocess.PIPE, stderr=open(log, "w"), text=True)
+
+
+def serve_children(torch, smi, d, tmp):
+    """Two replicas as processes of their own, at once: one serves a
+    queue file to its drain sentinel, each rid recorded exactly once; the
+    other serves synthetic traffic and takes SIGTERM, and must drain and
+    exit 0 within ``DRAIN_S``."""
+    import numpy as np
+
+    from theanompi_torch.serving.lifecycle import (
+        append_queue,
+        request_drain,
+        terminal_records,
+    )
+
+    q = os.path.join(tmp, "replica", "queue.jsonl")
+    rng = np.random.RandomState(3)
+    append_queue(q, [{"rid": i, "max_new_tokens": 16, "enq_wall": time.time(),
+                      "prompt": [int(x) for x in rng.randint(
+                          0, CKPT_TRAIN_CFG["vocab"], 100 * (1 + i % 4))]}
+                     for i in range(QUEUE_REQUESTS)])
+    request_drain(q)
+    sig_log = os.path.join(tmp, "sigterm-REQUESTS.jsonl")
+    base = _serving_argv() + ["--checkpoint-dir", d, "--max-batch", "8",
+                              "--block-size", "16"]
+    children = {
+        "queue": _serve_child(base + ["--queue-file", q],
+                              os.path.join(tmp, "queue.err")),
+        "sigterm": _serve_child(
+            base + ["--requests", "256", "--prompt-len", "200",
+                    "--max-new-tokens", "64", "--requests-log", sig_log,
+                    "--drain-s", str(DRAIN_S)],
+            os.path.join(tmp, "sigterm.err"))}
+    try:
+        deadline = time.monotonic() + 300
+        while not terminal_records(sig_log):
+            check(children["sigterm"].poll() is None, "sigterm replica "
+                  "exited before serving")
+            check(time.monotonic() < deadline, "sigterm replica never "
+                  "served a request")
+            time.sleep(0.1)
+        t0 = time.perf_counter()
+        children["sigterm"].send_signal(signal.SIGTERM)
+        out_s, _ = children["sigterm"].communicate(timeout=DRAIN_S + 60)
+        drain_s = time.perf_counter() - t0
+        out_q, _ = children["queue"].communicate(timeout=300)
+    finally:
+        for k, c in children.items():
+            if c.poll() is None:
+                c.kill()
+                c.communicate(timeout=60)
+            if c.returncode:
+                with open(os.path.join(tmp, f"{k}.err")) as f:
+                    print(f"serve child {k} exited {c.returncode}: "
+                          f"{f.read()[-3000:]}", flush=True)
+    codes = {k: c.returncode for k, c in children.items()}
+    check(codes == {"queue": 0, "sigterm": 0}, f"serve children exited "
+          f"{codes}")
+    rep_q = json.loads(out_q.strip().splitlines()[-1])
+    rids = [r["rid"] for r in terminal_records(
+        os.path.join(tmp, "replica", "REQUESTS.jsonl"))]
+    print(f"serve_queue {smi}: exit 0 on the drain sentinel, "
+          f"{rep_q['terminal_states']}, tokens/s {rep_q['value']}, "
+          f"ttft_ms {rep_q['ttft_ms']}, rids logged {sorted(rids)}",
+          flush=True)
+    check(sorted(rids) == list(range(QUEUE_REQUESTS))
+          and rep_q["terminal_states"]["done"] == QUEUE_REQUESTS
+          and rep_q["checkpoint_epoch"] == 0,
+          "serve_queue: not every rid recorded exactly once")
+    rep_s = json.loads(out_s.strip().splitlines()[-1])
+    print(f"serve_sigterm {smi}: exit 0 {drain_s:.3f} s after SIGTERM "
+          f"(--drain-s {DRAIN_S}), drained {rep_s['drained']}, "
+          f"{rep_s['terminal_states']}", flush=True)
+    check(rep_s["drained"] and drain_s <= DRAIN_S
+          and sum(rep_s["terminal_states"].values()) == 256,
+          "serve_sigterm: the drain did not end clean within --drain-s")
+
+
+def serve_ckpt_phase(torch, smi, kernels):
+    """Phase 10: the transformer trained through the launcher and served
+    from its checkpoint directory.  -> the launches of the three serving
+    paths (``serve_ckpt_bf16``, ``serve_ckpt_int8``,
+    ``serve_rollout_bf16``)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="serve-ckpt-")
+    try:
+        src = os.path.join(tmp, "trained")
+        t0 = time.perf_counter()
+        ckpt_launcher(["--modelfile", "theanompi_torch.models.transformer_lm",
+                       "--modelclass", "TransformerLM", *_serving_argv(),
+                       "--set", f"n_epochs={SERVE_CKPT_EPOCHS}",
+                       "--checkpoint-dir", src], "serve-ckpt train")
+        d = os.path.join(tmp, "served")
+        os.makedirs(d)
+        _copy_epoch(src, d, 0)
+        out = {}
+        for quant in (False, True):
+            out["serve_ckpt_int8" if quant else "serve_ckpt_bf16"] = \
+                serve_run(torch, "bf16", quant, smi, kernels, ckpt=d)[0]
+            torch.cuda.empty_cache()
+        serve_children(torch, smi, d, tmp)
+        out["serve_rollout_bf16"] = serve_rollout(torch, smi, kernels, src,
+                                                  d)
+        print(f"serve_ckpt phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2783,6 +3131,10 @@ def main() -> int:
         # development run: phase 9 only, no result line
         zoo_phase(torch, smi, K.KERNELS)
         return 0
+    if "--serve-ckpt" in sys.argv[1:]:
+        # development run: phase 10 only, no result line
+        serve_ckpt_phase(torch, smi, K.KERNELS)
+        return 0
     if "--decode" in sys.argv[1:]:
         # development run: kernels 4 and 5 only, no result line
         checks = {"paged_decode": check_paged(torch),
@@ -2836,6 +3188,8 @@ def main() -> int:
     resume_launches = ckpt_phase(torch, smi)
     # -- phase 9 -----------------------------------------------------------
     zoo_launches = zoo_phase(torch, smi, K.KERNELS)
+    # -- phase 10 ----------------------------------------------------------
+    ckpt_serve_launches = serve_ckpt_phase(torch, smi, K.KERNELS)
 
     # the serving slice's kernels report their serve run; the flash
     # kernels the training run, which launches all three
@@ -2848,6 +3202,8 @@ def main() -> int:
                         "train_resume_bf16": resume_launches.get(k.name,
                                                                  0),
                         "train_zoo_bf16": zoo_launches[k.name],
+                        **{path: got[k.name] for path, got
+                           in ckpt_serve_launches.items()},
                         **{path: got[k.name]
                            for path, got in bsp_launches.items()}}
                for k in K.KERNELS}

@@ -5,7 +5,8 @@ default.
   (the BSP rule, the launcher, the losses, the conv nets, the zoo
   (AlexNet, VGG, GoogLeNet, the LSTM, DCGAN) and their data planes, the process groups and the ranks' jobs, the native crop, the
   prefetcher, the loader pool and the token stream, the checkpoints and
-  the exit codes and event log) and ``chip_smoke.py`` (as a module), and
+  the exit codes and event log, the fault plan, the serving lifecycle
+  files and the live rollout) and ``chip_smoke.py`` (as a module), and
   runs the checkpoint scrubber (``--verify``) on an empty directory,
   without ``jax`` or ``theanompi_tpu`` ever entering ``sys.modules``
   (the spawned ranks' own modules are checked by
@@ -69,6 +70,9 @@ def test_import_wall_in_a_fresh_interpreter():
         "import theanompi_torch.utils.checkpoint\n"
         "import theanompi_torch.resilience.codes\n"
         "import theanompi_torch.resilience.events\n"
+        "import theanompi_torch.resilience.faults\n"
+        "import theanompi_torch.serving.lifecycle\n"
+        "import theanompi_torch.serving.rollout\n"
         "import tempfile\n"
         "from theanompi_torch.utils.checkpoint import main as scrub\n"
         "assert scrub(['--verify', tempfile.mkdtemp()]) == 0\n"

@@ -20,6 +20,11 @@ wrapper runs its plain version); ``"off"`` pins the plain decode path,
 which dequantizes every weight.  ``attn_impl`` is the model's config key
 (prefill's flash kernel vs the blockwise path).
 
+Live rollout: :meth:`InferenceEngine.swap_params` installs a restored
+tree (moved to the card once, re-quantized as ``__init__`` quantized)
+and returns the previous one, which :meth:`InferenceEngine.
+restore_params` puts back exactly; both bump ``params_version``.
+
 Sampling: greedy (``temperature <= 0``) is argmax; temperature sampling
 draws Gumbel noise from a ``torch.Generator`` seeded from ``(seed, request
 id, position)`` only, so a preempted and recomputed sequence resamples
@@ -113,19 +118,12 @@ class InferenceEngine:
         #: int8 leaf) or "fallback" (the plain versions)
         self.decode_impl = "kernel" if use_kernel else "fallback"
         self.quant_stats = None
-        params = tree_to(params, self.device)
-        if quantize_int8:
-            params, self.quant_stats = quantize_tree(
-                params, torch.Generator().manual_seed(self.seed ^ 0x51),
-                quant_chunk)
-        #: the engine-format tree (int8 leaves when quantized)
-        self.params = params
-        cast = model.precision.cast_to_compute
-        self._prefill_params = cast(dequantize_tree(params))
-        if use_kernel and self.quantized:
-            self._decode_params = cast(params)
-        else:
-            self._decode_params = self._prefill_params
+        # kept for swap_params: a live rollout re-quantizes the incoming
+        # tree exactly as here (same generator seed, same chunking), so
+        # kernel 5 sees the same format
+        self._quantize_int8 = bool(quantize_int8)
+        self._quant_chunk = int(quant_chunk)
+        self._install(self._engine_format(params))
         self.cache = PagedKVCache.create(
             n_layers=cfg["n_layers"], num_blocks=self.num_blocks,
             block_size=block_size, heads=heads, head_dim=dim // heads,
@@ -137,6 +135,53 @@ class InferenceEngine:
     @property
     def quantized(self) -> bool:
         return is_quantized_tree(self.params)
+
+    def _engine_format(self, params):
+        """A port-format tree (host or device tensors) -> the engine's
+        format: on the engine's device, int8 leaves when quantized."""
+        params = tree_to(params, self.device)
+        if self._quantize_int8:
+            params, self.quant_stats = quantize_tree(
+                params, torch.Generator().manual_seed(self.seed ^ 0x51),
+                self._quant_chunk)
+        return params
+
+    def _install(self, params) -> None:
+        """Serve ``params`` (engine format): prefill's dequantized
+        compute-dtype copy and decode's tree (int8 leaves kept for kernel
+        5 on the kernel path) are built once here, not per step, and the
+        previous ones are dropped."""
+        cast = self.model.precision.cast_to_compute
+        #: the engine-format tree (int8 leaves when quantized)
+        self.params = params
+        self._prefill_params = cast(dequantize_tree(params))
+        if self.decode_impl == "kernel" and is_quantized_tree(params):
+            self._decode_params = cast(params)
+        else:
+            self._decode_params = self._prefill_params
+
+    def swap_params(self, params):
+        """Hot-swap the serving weights (live rollout); -> the previous
+        engine-format tree, the rollback token for :meth:`restore_params`.
+
+        ``params``: a port-format tree (as :func:`theanompi_torch.utils.
+        checkpoint.load_for_inference` restores it), moved to the engine's
+        device once and, under ``quantize_int8``, re-quantized with the
+        seed and chunking ``__init__`` used.  The KV cache is not touched:
+        the caller preempts the active sequences first, since their cache
+        was computed under the old weights.  Bumps ``params_version``,
+        which the prefix cache checks."""
+        prev = self.params
+        self._install(self._engine_format(params))
+        self.params_version += 1
+        return prev
+
+    def restore_params(self, engine_params) -> None:
+        """Reinstall a tree :meth:`swap_params` returned (engine format,
+        never re-quantized).  Bumps ``params_version`` too: K/V cached
+        under the rolled-back-from weights is stale."""
+        self._install(engine_params)
+        self.params_version += 1
 
     def _tensor(self, x, dtype):
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)

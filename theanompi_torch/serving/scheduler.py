@@ -15,13 +15,22 @@ the replayed sequence continues exactly where it left off.
 Every request ends in exactly one typed terminal state: ``done``,
 ``expired`` (a TTFT or total deadline passed), ``shed`` (refused at
 admission: load shedding or a drain) or ``failed`` (can never fit the KV
-pool).  Telemetry, fault injection, live snapshots and the router's queue
-loop come with a later slice.
+pool).
+
+Two drive loops: :func:`run_open_loop` (seeded synthetic arrivals) and
+:func:`run_queue_loop` (a replica tailing its durable queue file, see
+:mod:`theanompi_torch.serving.lifecycle`).  Both offer the scheduler to a
+``between_steps`` hook every pass (the rollout watcher, whose weight swap
+runs behind :meth:`Scheduler.preempt_all`) and its live load to a
+snapshot publisher.  The ``serve:raise`` and ``serve:stall`` fault sites
+fire at decode-step ordinals (:meth:`Scheduler._fire_faults`).  Telemetry
+comes with a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from collections import deque
 from dataclasses import field
@@ -29,7 +38,9 @@ from dataclasses import field
 import numpy as np
 import torch
 
+from theanompi_torch.resilience.faults import FaultInjected
 from theanompi_torch.serving.kv_cache import BlockPool, PagedKVCache, blocks_for
+from theanompi_torch.serving.lifecycle import DRAIN_OP, read_jsonl_since
 from theanompi_torch.serving.prefix_cache import PrefixCache
 
 #: every request ends in exactly one of these
@@ -67,14 +78,18 @@ class Scheduler:
     queue's backlog provably cannot meet at the recent token rate;
     ``prefix_cache=True`` turns on the radix prefix cache over the block
     pool (admissions reuse cached full-block prompt-prefix K/V through
-    partial prefill; token streams are unchanged).
+    partial prefill; token streams are unchanged).  ``fault_plan``
+    (:class:`theanompi_torch.resilience.faults.FaultPlan`) arms the
+    ``serve:raise`` and ``serve:stall`` sites.
     """
 
     def __init__(self, engine, eos_token: int | None = None,
-                 shed: bool = False, prefix_cache: bool = False):
+                 shed: bool = False, prefix_cache: bool = False,
+                 fault_plan=None):
         self.engine = engine
         self.eos_token = eos_token
         self.shed = shed
+        self.fault_plan = fault_plan
         self.pool = BlockPool(engine.num_blocks)
         self.prefix_cache = (PrefixCache(self.pool, engine.block_size)
                              if prefix_cache else None)
@@ -127,6 +142,30 @@ class Scheduler:
         for req in list(self.queue) + [r for r in self.slots if r]:
             owed += max(req.max_new_tokens - len(req.generated), 0)
         return owed
+
+    def snapshot(self) -> dict:
+        """Live load for a router's balancer (the reference's keys):
+        backlog, recent rate, terminal tallies, prefix-hit rate.  Plain
+        host ints and floats, for
+        :func:`theanompi_torch.serving.lifecycle.publish_snapshot`."""
+        rate = self.recent_token_rate()
+        return {
+            # wall clock, so another process can judge freshness
+            "updated": time.time(),
+            "backlog_tokens": self._backlog_tokens(),
+            "queue_len": len(self.queue),
+            "n_active": self.n_active,
+            "token_rate": round(rate, 3) if rate is not None else None,
+            "decode_steps": self.n_steps,
+            "n_done": self.n_done,
+            "n_expired": self.n_expired,
+            "n_shed": self.n_shed,
+            "n_failed": self.n_failed,
+            "draining": self.draining,
+            "prefix_hit_rate": (
+                round(self.n_prefix_hits / self.n_prefix_lookups, 4)
+                if self.n_prefix_lookups else 0.0),
+        }
 
     # -- submission ----------------------------------------------------------
     def submit(self, req: Request) -> bool:
@@ -277,6 +316,18 @@ class Scheduler:
         req.state = "queued"
         self.queue.appendleft(req)  # rejoin first: it already holds work
 
+    def preempt_all(self) -> int:
+        """Evict every active request back to the queue front (recompute
+        preemption): the weight swap's barrier, since the KV cache was
+        computed under the old weights and the active sequences re-prefill
+        under the new ones.  -> the number preempted."""
+        n = 0
+        for slot in range(self.engine.max_batch):
+            if self.slots[slot] is not None:
+                self._preempt(slot)
+                n += 1
+        return n
+
     def _alloc(self, n: int) -> list[int] | None:
         """Pool allocation; when the free list can't cover ``n``, the radix
         tree evicts LRU zero-ref leaves first."""
@@ -379,6 +430,20 @@ class Scheduler:
                     key=lambda s: int(self._lengths[s]))
                 self._preempt(victim)
 
+    def _fire_faults(self) -> None:
+        """The ``serve:raise`` and ``serve:stall`` sites, indexed by the
+        decode-step ordinal, fired just before the step's decode.  The
+        fires are narrowed by action: the rollout watcher counts another
+        ordinal (candidates) for ``serve:rollout_corrupt``."""
+        if self.fault_plan is None:
+            return
+        if self.fault_plan.fire("serve", self.n_steps, "stall"):
+            time.sleep(float(os.environ.get("THEANOMPI_SERVE_STALL_S",
+                                            "2.0")))
+        if self.fault_plan.fire("serve", self.n_steps, "raise"):
+            raise FaultInjected(
+                f"serve:raise at decode step {self.n_steps}")
+
     def step(self) -> list[Request]:
         """One iteration: enforce deadlines, admit, secure blocks, decode
         the fixed batch, account the new tokens; -> every request that
@@ -393,6 +458,7 @@ class Scheduler:
                   if self.slots[s] is not None]
         if not active:  # capacity pressure preempted everyone admitted
             return finished
+        self._fire_faults()
         t0 = time.perf_counter()
         # decode() returns host token ids: the device work is done
         nxt, _ = self.engine.decode(self._tables, self._lengths,
@@ -434,17 +500,26 @@ class Scheduler:
                 self._expire(req, "drain", reason, out)
         return out
 
+    def end_drain(self) -> None:
+        """The drain's end (the reference's telemetry instant; the port's
+        telemetry is a later slice, so nothing is recorded yet)."""
+
 
 def run_open_loop(scheduler: Scheduler, requests: list[Request],
                   poll_s: float = 0.002, *, drain=None,
-                  drain_s: float = 5.0,
-                  on_terminal=None) -> tuple[dict[int, Request], float]:
+                  drain_s: float = 5.0, on_terminal=None,
+                  between_steps=None,
+                  snapshot=None) -> tuple[dict[int, Request], float]:
     """Drive open-loop traffic: each request is submitted when the clock
     passes its ``arrival_s``, and the scheduler steps until every request
     is terminal.  ``drain``: a zero-arg callable polled every pass; once
     true, admission stops (queued and not-yet-arrived requests shed), the
     in-flight requests decode for up to ``drain_s`` seconds, the rest
     expire.  ``on_terminal(req)`` fires once per terminal request.
+    ``between_steps(scheduler)`` runs every pass (the rollout watcher's
+    poll point); ``snapshot``: a
+    :class:`~theanompi_torch.serving.lifecycle.SnapshotPublisher` offered
+    the live load every pass and, forced, at the end.
     -> ({rid: terminal request}, wall seconds)."""
     pending = deque(sorted(requests, key=lambda r: r.arrival_s))
     results: dict[int, Request] = {}
@@ -458,6 +533,10 @@ def run_open_loop(scheduler: Scheduler, requests: list[Request],
     drain_deadline = 0.0
     t0 = time.perf_counter()
     while len(results) < len(requests):
+        if between_steps is not None:
+            between_steps(scheduler)
+        if snapshot is not None:
+            snapshot.maybe(scheduler.snapshot, scheduler.n_steps)
         if drain is not None and not draining and drain():
             draining = True
             drain_deadline = time.perf_counter() + drain_s
@@ -485,6 +564,106 @@ def run_open_loop(scheduler: Scheduler, requests: list[Request],
             for req in scheduler.expire_all_active("drain deadline"):
                 _terminal(req)
             break
+    if draining:
+        scheduler.end_drain()
+    if snapshot is not None:  # the final publish: terminal tallies land
+        snapshot.maybe(scheduler.snapshot, scheduler.n_steps, force=True)
+    return results, time.perf_counter() - t0
+
+
+def run_queue_loop(scheduler: Scheduler, queue_path: str,
+                   poll_s: float = 0.002, *, drain=None,
+                   drain_s: float = 5.0, on_terminal=None,
+                   between_steps=None, snapshot=None,
+                   answered: set[int] | None = None,
+                   ) -> tuple[dict[int, Request], float]:
+    """Drive a replica off its durable admission queue (the reference's
+    :743).
+
+    A router appends request entries to ``queue_path``
+    (:func:`theanompi_torch.serving.lifecycle.append_queue`); this loop
+    tails the file by byte offset, submits each entry as it appears, and
+    runs until a ``{"op": "drain"}`` sentinel arrives (finish what is in
+    flight, then return) or the ``drain`` callable trips (the SIGTERM
+    path: shed queued work with reason "draining", decode in-flight
+    requests for up to ``drain_s``, expire the rest).
+
+    ``answered``: rids already terminal in a previous attempt (from
+    REQUESTS.jsonl); their entries are skipped, neither served nor
+    recorded again.  ``on_terminal(req, queue_wait_ms=...)`` gets the wall
+    time from the entry's ``enq_wall`` stamp to its submission, so a
+    router can rebuild the TTFT it sees without a shared clock.
+
+    -> ({rid: terminal request}, wall seconds)."""
+    results: dict[int, Request] = {}
+    answered = set() if answered is None else set(answered)
+    queue_wait_ms: dict[int, float] = {}
+
+    def _terminal(req: Request) -> None:
+        results[req.rid] = req
+        if on_terminal is not None:
+            extra = {}
+            if req.rid in queue_wait_ms:
+                extra["queue_wait_ms"] = queue_wait_ms[req.rid]
+            on_terminal(req, **extra)
+
+    def _entry_to_request(e: dict) -> Request:
+        return Request(
+            rid=int(e["rid"]),
+            prompt=list(e["prompt"]),
+            max_new_tokens=int(e.get("max_new_tokens", 16)),
+            temperature=float(e.get("temperature", 0.0)),
+            ttft_deadline_ms=e.get("ttft_deadline_ms"),
+            total_deadline_ms=e.get("total_deadline_ms"),
+        )
+
+    offset = 0
+    drain_seen = False        # the durable sentinel: finish, then return
+    sig_draining = False      # SIGTERM: shed, bounded decode, expire
+    drain_deadline = 0.0
+    t0 = time.perf_counter()
+    while True:
+        if between_steps is not None:
+            between_steps(scheduler)
+        if snapshot is not None:
+            snapshot.maybe(scheduler.snapshot, scheduler.n_steps)
+        if not sig_draining:
+            entries, offset = read_jsonl_since(queue_path, offset)
+            for e in entries:
+                if e.get("op") == DRAIN_OP:
+                    drain_seen = True
+                    continue
+                if "rid" not in e or int(e["rid"]) in answered:
+                    continue
+                req = _entry_to_request(e)
+                if "enq_wall" in e:
+                    # wall clock: the stamp came from the router's process
+                    queue_wait_ms[req.rid] = round(
+                        max(time.time() - float(e["enq_wall"]), 0.0) * 1e3,
+                        3)
+                answered.add(req.rid)  # one submission a rid an attempt
+                if not scheduler.submit(req):
+                    _terminal(req)
+        if drain is not None and not sig_draining and drain():
+            sig_draining = True
+            drain_deadline = time.perf_counter() + drain_s
+            for req in scheduler.begin_drain():
+                _terminal(req)
+        if scheduler.idle:
+            if drain_seen or sig_draining:
+                break
+            time.sleep(poll_s)
+            continue
+        for req in scheduler.step():
+            _terminal(req)
+        if sig_draining and time.perf_counter() >= drain_deadline:
+            for req in scheduler.expire_all_active("drain deadline"):
+                _terminal(req)
+            break
+    if sig_draining:
+        scheduler.end_drain()
+    if snapshot is not None:
+        snapshot.maybe(scheduler.snapshot, scheduler.n_steps, force=True)
     return results, time.perf_counter() - t0
 
 

@@ -45,11 +45,15 @@ kernels HWIO and ``zero1``'s buckets in the reference's element order).
   :class:`CheckpointChainExhausted` (the launcher's exit 77).  A
   fingerprint mismatch raises :class:`CheckpointFingerprintError` (exit
   78) unless ``resume_force``.
+- **The read-only consumer** (:func:`load_for_inference`, serving's
+  ``--checkpoint-dir``): the same chain, which steps over a corrupt file
+  without moving it and writes nothing to the directory, and a
+  fingerprint check of the model class and config only.
 - **The scrubber**: ``python -m theanompi_torch.utils.checkpoint --verify
   DIR`` full-verifies every retained file, exit 0 or 77.
 
 Not carried here (ROADMAP): the elastic reshard family, the fault plan's
-corruption sites, the multi-host broadcast and ``load_for_inference``.
+corruption sites and the multi-host broadcast.
 A run of several ranks on one host agrees on a resume through
 :func:`theanompi_torch.parallel.trainer.BaseTrainer.try_resume` (rank 0
 runs the chain and restores, then every other rank reads the epoch it
@@ -410,23 +414,35 @@ def _normalize_fp(fp: dict) -> dict:
 
 
 def check_fingerprint(manifest: dict, mine: dict | None, npz_path: str,
-                      force: bool = False) -> None:
+                      force: bool = False, subset: bool = False) -> None:
     """Refuse a checkpoint of another run (or warn, under ``force``).
     Skipped when either side has no fingerprint.  The refusal names the
-    keys that differ."""
+    keys that differ.  ``subset=True`` compares only the keys ``mine``
+    provides: the serving consumer's mode (the reference's :379), which
+    has no mesh or exchange to match but must match the model class and
+    config."""
     theirs = manifest.get("fingerprint")
     if theirs is None or mine is None:
         return
     mine, theirs = _normalize_fp(mine), _normalize_fp(theirs)
+    if subset:
+        theirs = {k: v for k, v in theirs.items() if k in mine}
     if mine == theirs:
         return
     diffs = ", ".join(
         f"{k}: checkpoint={theirs.get(k)!r} != run={mine.get(k)!r}"
         for k in sorted(set(theirs) | set(mine))
         if theirs.get(k) != mine.get(k))
-    msg = (f"{os.path.basename(npz_path)}: run fingerprint mismatch "
-           f"({diffs}): this checkpoint belongs to another run; pass "
-           f"--resume-force (rule key resume_force=True) to override")
+    if subset:
+        msg = (f"{os.path.basename(npz_path)}: run fingerprint mismatch "
+               f"({diffs}): this checkpoint was trained with a different "
+               f"model class/config; serving it would mismap weights. "
+               f"Reproduce the training --set flags, or pass --serve-force "
+               f"to override")
+    else:
+        msg = (f"{os.path.basename(npz_path)}: run fingerprint mismatch "
+               f"({diffs}): this checkpoint belongs to another run; pass "
+               f"--resume-force (rule key resume_force=True) to override")
     if force:
         print(f"checkpoint: WARNING: {msg}; proceeding (force)",
               file=sys.stderr, flush=True)
@@ -492,13 +508,22 @@ class Checkpointer:
     the trainer converts to the reference's layouts).  ``writer=False``:
     a rank other than 0 of a run, which never writes, sweeps nor marks
     the directory.  ``verbose``: the writer prints one line a publish
-    (bytes, ``snapshot_ms``, ``write_ms``)."""
+    (bytes, ``snapshot_ms``, ``write_ms``).
+
+    ``read_only``: a consumer (:func:`load_for_inference`) that never
+    changes the directory, which a live training writer may own: no
+    debris sweep, no ``dirty`` marker, no quarantine move (a corrupt file
+    is stepped over and left in place), no ``latest.json`` or
+    ``resilience.json`` rewrite, and :meth:`save` (hence scrub and prune)
+    refuses.  ``fingerprint_subset``: compare only the fingerprint's own
+    keys (the model class and config sha, for serving)."""
 
     def __init__(self, directory: str, keep: int = 3,
                  async_save: bool = False, fingerprint=None,
                  resume_force: bool = False, sweep_debris: bool = True,
                  encode=None, decode=None, writer: bool = True,
-                 verbose: bool = False):
+                 verbose: bool = False, read_only: bool = False,
+                 fingerprint_subset: bool = False):
         self.directory = directory
         self.keep = keep
         self.async_save = async_save
@@ -508,6 +533,8 @@ class Checkpointer:
         self.decode = decode or decode_plain
         self.writer = writer
         self.verbose = verbose
+        self.read_only = read_only
+        self.fingerprint_subset = fingerprint_subset
         #: manifest of the latest :meth:`load_latest_verified` restore
         self.last_loaded_manifest: dict | None = None
         self._inflight: SaveHandle | None = None
@@ -518,6 +545,8 @@ class Checkpointer:
         self._stager = _Stager()
         self._verify_cache: dict[str, tuple] = {}
         self._scrubbed: set[tuple] = set()
+        if read_only:
+            return
         os.makedirs(directory, exist_ok=True)
         if sweep_debris and writer:
             self._sweep_tmp()
@@ -557,7 +586,7 @@ class Checkpointer:
         """A run that writes here holds the ``dirty`` marker until it
         exits cleanly; found at a resume, it means the last writer died,
         when a ``full`` verify is worth its read."""
-        if self._marked_dirty:
+        if self._marked_dirty or self.read_only:
             return
         with open(self._dirty_path(), "w") as f:
             f.write("1")
@@ -567,7 +596,8 @@ class Checkpointer:
         """The clean-shutdown handshake: join the writer, drop the
         marker."""
         self.join_pending()
-        if self.writer and os.path.exists(self._dirty_path()):
+        if (self.writer and not self.read_only
+                and os.path.exists(self._dirty_path())):
             os.remove(self._dirty_path())
         self._marked_dirty = False
 
@@ -601,6 +631,10 @@ class Checkpointer:
         tensors among the leaves that were made for this save alone and
         that nothing else writes (``zero1``'s gathered buckets): the
         snapshot takes them as they are instead of cloning them."""
+        if self.read_only:
+            raise RuntimeError(
+                "Checkpointer is read-only (load_for_inference): save() "
+                "refused, the directory belongs to a training writer")
         self.join_pending()  # also: the pinned buffers are free again
         t0 = time.perf_counter()
         snap = self._stager.snapshot(trees, handed_over)
@@ -742,7 +776,13 @@ class Checkpointer:
     def quarantine(self, epoch: int, reason: str) -> list[str]:
         """Move a bad checkpoint (``.npz`` and manifest) under
         ``<dir>/corrupt/``, out of the chain and retention but kept, and
-        record ``ckpt.quarantine``."""
+        record ``ckpt.quarantine``.  A read-only consumer leaves the file
+        in place for the writer that owns the directory."""
+        if self.read_only:
+            print(f"checkpoint: read-only consumer skipping epoch {epoch} "
+                  f"({reason}), left in place for the owning writer",
+                  file=sys.stderr, flush=True)
+            return []
         qdir = os.path.join(self.directory, "corrupt")
         os.makedirs(qdir, exist_ok=True)
         moved = []
@@ -770,7 +810,10 @@ class Checkpointer:
     def _record_fallback(self, skipped: list[int], epoch: int,
                          iteration: int, verify: str) -> None:
         """Record ``ckpt.fallback`` and repoint ``latest.json`` at the
-        epoch the chain restored."""
+        epoch the chain restored (a read-only consumer records and
+        repoints nothing)."""
+        if self.read_only:
+            return
         self._record_event("ckpt.fallback", bad_epochs=skipped,
                            restored_epoch=epoch, verify=verify)
         self._write_latest(epoch, iteration)
@@ -809,7 +852,8 @@ class Checkpointer:
         """One retained epoch's file and fingerprint; -> its manifest."""
         man = verify_file(self._path(epoch), level=level)
         check_fingerprint(man, self._resolved_fingerprint(),
-                          self._path(epoch), force=self.resume_force)
+                          self._path(epoch), force=self.resume_force,
+                          subset=self.fingerprint_subset)
         return man
 
     def _chain(self, attempt, verify: str):
@@ -835,10 +879,12 @@ class Checkpointer:
                 self._record_fallback(skipped, ep, it, verify)
             return ep, it, man, result
         if skipped:
+            where = ("left in place (read-only)" if self.read_only
+                     else "quarantined under corrupt/")
             raise CheckpointChainExhausted(
                 f"no verifiable checkpoint left in {self.directory}: all "
                 f"{len(skipped)} candidate(s) {skipped} failed verification "
-                f"and were quarantined under corrupt/")
+                f"and were {where}")
         return None
 
     def load_latest_verified(self, templates: dict, verify: str = "fast"):
@@ -888,6 +934,40 @@ class Checkpointer:
             for key, meta in man["leaves"].items():
                 _check_leaf(fname, key, meta, arrays[key])
         return self.decode(arrays, templates)
+
+
+# -- the read-only consumer (serving) -----------------------------------------
+
+def load_for_inference(directory: str, templates: dict,
+                       verify: str = "fast", model=None,
+                       force: bool = False):
+    """Read-only verified restore for serving (the reference's :1733).
+
+    Restores the newest checkpoint that passes verification, stepping
+    back over corrupt ones, without ever writing to the directory (see
+    :class:`Checkpointer`'s ``read_only``), so it is safe against a
+    directory a live training writer owns.  The leaves are read in the
+    reference's layouts and restored into ``templates`` (their structure,
+    dtypes and devices) by :func:`theanompi_torch.convert.
+    train_state_from_jax`.
+
+    ``model``: when given, the checkpoint's model class and config sha
+    (:func:`model_fingerprint`) must match; mesh and exchange keys are
+    ignored.  ``force=True`` (``--serve-force``) downgrades a mismatch to
+    a warning.
+
+    -> ``(epoch, iteration, restored trees)``, or None for a missing or
+    empty directory; raises :class:`CheckpointChainExhausted` and
+    :class:`CheckpointFingerprintError` as the training chain does."""
+    from theanompi_torch.convert import train_state_from_jax
+
+    if not os.path.isdir(directory):
+        return None
+    cp = Checkpointer(
+        directory, read_only=True, fingerprint_subset=True,
+        fingerprint=model_fingerprint(model) if model is not None else None,
+        resume_force=force, decode=train_state_from_jax)
+    return cp.load_latest_verified(templates, verify=verify)
 
 
 # -- the scrubber CLI ---------------------------------------------------------
