@@ -201,12 +201,40 @@ Phases (any failure exits non-zero and prints no result line):
    tokens/s, TTFT and decode-step p50, the adopting poll's and the
    rollback's host ms.
 
+11. **The async rules** — through ``EASGD``, ``GOSGD`` and ``LocalSGD``
+   ``(...).init(devices=N)`` on every rank of phase 6's layout (two or more
+   cards: up to 4 NCCL ranks; one card: 2 ranks sharing it over gloo)
+   (``rank_jobs.async_run``): the transformer at phase 4's config in bf16
+   (global batch 16 as N x 16/N) under EASGD τ 2 and under GOSGD at
+   ``p_push`` 1, and ResNet-50 at phase 5's config in bf16 (global batch
+   256, each worker its own BN state) under EASGD τ 2, 4 steps and one
+   validation batch each.  On every run: the ranks' losses finite; the
+   workers' params different after every local step (before its
+   exchange); the center bit-equal on every rank after every step
+   (EASGD), the weights summing to 1 within 1e-6 (GOSGD); kernels 1-3
+   launched ``8 x 4`` times on every rank by the transformer, none by
+   ResNet-50.  Each run is held against a one-process emulation of the
+   rule on the card (the N workers in turn from the same init and
+   batches, the exchange in plain tensor ops): the params' update after
+   the first exchange, the center's update (or the weights) after the last
+   step and the validation cost on ``eval_args`` within phase 4's bf16
+   limits.  Printed: step ms p50, the exchange's (``comm``) ms p50,
+   tokens or images/s per worker, peak GiB per rank, the backend and the
+   gossip transport (``all_gather`` for gloo ranks on CUDA tensors, else
+   ``p2p``).  Then LocalSGD τ 1 against BSP ``psum`` on the same ranks
+   (the transformer in fp32, plain SGD, 3 steps): the workers' mean loss
+   and the params' update within phase 6's fp32 limits; and ResNet-50
+   ``remat="save_convs"`` against ``"none"`` in bf16 at batch 256 in this
+   process (cuDNN deterministic): the losses, the first step's grads, the
+   update and the BN state after 2 steps within phase 5's limits, and the
+   peak memory of both.
+
 ``python3 chip_smoke.py --decode`` runs phase 1 and kernels 4 and 5 of
 phase 2 only, and prints no result line; ``--conv`` runs phases 1 and 5
 only, ``--bsp`` phases 1 and 6 only, ``--data`` phases 1 and 7 only,
-``--ckpt`` phases 1 and 8 only, ``--zoo`` phases 1 and 9 only and
-``--serve-ckpt`` phases 1 and 10 only, none of them printing a result
-line.
+``--ckpt`` phases 1 and 8 only, ``--zoo`` phases 1 and 9 only,
+``--serve-ckpt`` phases 1 and 10 only and ``--async`` phases 1 and 11
+only, none of them printing a result line.
 
 Output: the ``nvidia-smi`` line, one line per check, the serve reports,
 the training lines, the conv-net lines, the multi-rank lines, the data
@@ -218,7 +246,9 @@ and the multi-rank bf16 transformer runs summed over their ranks,
 ``_zero1`` and ``_zero1_overlap`` twins, the resumed run
 (``train_resume_bf16``), the zoo's runs summed (``train_zoo_bf16``) and
 phase 10's serving runs from the checkpoint (``serve_ckpt_bf16``,
-``serve_ckpt_int8``) and the rollout's drive (``serve_rollout_bf16``))
+``serve_ckpt_int8``) and the rollout's drive (``serve_rollout_bf16``),
+and phase 11's transformer runs summed over their ranks
+(``train_easgd2_bf16``, ``train_gosgd2_bf16``))
 and, last, ``{"ok": true,
 "device": {...}}``.  fp32 products run without TF32 throughout.
 """
@@ -3064,6 +3094,421 @@ def serve_ckpt_phase(torch, smi, kernels):
     return out
 
 
+# -- phase 11: the async rules ------------------------------------------------
+
+ASYNC_STEPS = 4
+#: the transformer at phase 4's config in bf16, global batch 16 (N x 16/N),
+#: 4 steps and one validation batch
+ASYNC_TRAIN_CFG = {**TRAIN_CFG, "precision": "bf16",
+                   "n_train": ASYNC_STEPS * TRAIN_CFG["batch_size"],
+                   "n_val": TRAIN_CFG["batch_size"]}
+#: ResNet-50 at phase 5's config in bf16, global batch 256 (N x 256/N, in
+#: shards of 128), 4 steps and one validation batch; each worker keeps its
+#: own BN state (no sync-BN under an async rule)
+ASYNC_CONV_CFG = {**BSP_CONV_CFG, "precision": "bf16",
+                  "n_train": ASYNC_STEPS * CONV_CFG["batch_size"]}
+#: (model, rule, rule config, the step after which the first exchange has
+#: run): EASGD τ 2 exchanges after steps 2 and 4; GOSGD at p_push 1 has
+#: every worker push after every step
+ASYNC_RUNS = (("transformer", "EASGD", {"tau": 2}, 2),
+              ("transformer", "GOSGD", {"p_push": 1.0}, 1),
+              ("resnet50", "EASGD", {"tau": 2}, 2))
+ASYNC_MODELS = {"transformer": (ASYNC_TRAIN_CFG,
+                                "theanompi_torch.models.transformer_lm",
+                                "TransformerLM"),
+                "resnet50": (ASYNC_CONV_CFG,
+                             "theanompi_torch.models.resnet50", "ResNet50")}
+#: the ranks against the one-process emulation (bf16 on both): phase 4's
+#: bf16 limits, (loss, -, update) relative; the emulation runs the same
+#: kernels on the same inputs, but the exchange's sums are the collective's
+#: (gloo stages them through the host) against plain tensor ops
+ASYNC_EMU_TOL = PARITY_TOL["bf16"]
+#: LocalSGD τ 1 against BSP ``psum`` on the same ranks: the transformer in
+#: fp32, plain SGD (no momentum, weight decay or clipping, under which an
+#: average of the workers' updates is the update of the averaged grads),
+#: 3 steps.  The loss within phase 6's fp32 limit.  The params: LocalSGD
+#: rounds each worker's ``p - lr g_r`` to fp32 before the average, BSP
+#: only ``p - lr mean(g)``, so the two differ by a few ulps of each param a
+#: step, which is a large share of the update where it is small (6.7e-4 of
+#: the update's norm here on an NVIDIA H100, growing with depth).  So the
+#: params' distance is held within
+#: ``ASYNC_LSGD_ULPS`` units of fp32 roundoff of their norm (the rounding
+#: of one step is about half a unit an element, three steps of two
+#: roundings each under 4 units in norm) plus phase 6's update limit of
+#: the update's norm
+ASYNC_LSGD_ULPS = 8
+ASYNC_LSGD_STEPS = 3
+ASYNC_LSGD_CFG = {**TRAIN_CFG, "precision": "fp32", "momentum": 0.0,
+                  "weight_decay": 0.0, "grad_clip": None,
+                  "n_train": ASYNC_LSGD_STEPS * TRAIN_CFG["batch_size"],
+                  "n_val": TRAIN_CFG["batch_size"]}
+ASYNC_LSGD_TOL = BSP_TOL[("transformer", "fp32")]
+#: ResNet-50 ``remat="save_convs"`` against ``"none"``: phase 5's config in
+#: bf16 at batch 256, one process, 2 steps, cuDNN's deterministic
+#: algorithms; phase 5's limits (loss, grad norm, update, BN state)
+REMAT_STEPS = 2
+REMAT_TOL = CONV_PARITY_TOL
+
+
+def _vec(torch, tree):
+    """``tree``'s leaves as one float64 vector on the host."""
+    from theanompi_torch.tree import tree_leaves_with_path
+
+    return torch.cat([x.detach().double().flatten().cpu()
+                      for _, x in tree_leaves_with_path(tree)])
+
+
+def _rel(torch, a, b) -> float:
+    """|a - b| / |b| of two vectors."""
+    return float((a - b).norm() / b.norm())
+
+
+def async_emulate(torch, model, rule, rcfg, n, device, save_step):
+    """The async rule's N workers in turn in this process from the same
+    init and batches as the ranks, with the exchange in plain tensor ops.
+    -> (each worker's params after ``save_step``, the init params, the
+    center (EASGD) or the weights (GOSGD) after the last step, the
+    validation cost on ``eval_args``'s trees)."""
+    from theanompi_torch.parallel.gosgd import round_draws
+    from theanompi_torch.parallel.trainer import make_train_step
+    from theanompi_torch.tree import tree_map, tree_to
+    from theanompi_torch.utils.helper_funcs import import_model, to_device
+
+    cfg, mfile, mclass = ASYNC_MODELS[model]
+    b = cfg["batch_size"] // n
+    m = import_model(mfile, mclass)({**cfg, "batch_size": b,
+                                     "verbose": False})
+    if rule == "EASGD" and n > 1 and rcfg.get("scale_lr", True):
+        m.scale_lr(n)
+    opt = m.build_optimizer()
+    p0, s0 = m.init_params(torch.Generator().manual_seed(1))
+    p0, s0 = tree_to(p0, device), tree_to(s0, device)
+    workers = [[p0, s0, m.init_opt_state(opt, p0)] for _ in range(n)]
+    step = make_train_step(m, opt, None, 0, device)
+    lr = m.adjust_hyperp(0)
+    tau, alpha = rcfg.get("tau", 4), rcfg.get("alpha") or 0.9 / n
+    p_push = rcfg.get("p_push") or 1.0 / max(n, 2)
+    center = p0
+    weights = [torch.full((), 1.0 / n, dtype=torch.float32, device=device)
+               for _ in range(n)]
+    saved = None
+    gen = m.data.train_batches(b * n, 0, seed=0)
+    for i, batch in zip(range(1, ASYNC_STEPS + 1), gen):
+        for r, w in enumerate(workers):
+            rows = to_device({k: v[r * b:(r + 1) * b]
+                              for k, v in batch.items()}, device)
+            w[:] = step(*w, rows, lr, i - 1)[:3]
+        with torch.no_grad():
+            if rule == "EASGD" and i % tau == 0:
+                diffs = [tree_map(torch.sub, w[0], center) for w in workers]
+                total = tree_map(lambda *d: sum(d[1:], d[0]), *diffs)
+                for w, d in zip(workers, diffs):
+                    w[0] = tree_map(lambda p, x: p - alpha * x, w[0], d)
+                center = tree_map(lambda c, t: c + alpha * t, center, total)
+            elif rule == "GOSGD":
+                push, shift = round_draws(0, i, n, p_push)
+                if push.any():
+                    sent = [float(push[r]) * weights[r] * 0.5
+                            for r in range(n)]
+                    merged = []
+                    for r in range(n):
+                        src, kept = (r - shift) % n, weights[r] - sent[r]
+                        nw = kept + sent[src]
+                        merged.append((tree_map(
+                            lambda x, y, k=kept, s=sent[src], nw=nw:
+                            ((k * x.float() + s * y.float()) / nw).to(
+                                x.dtype), workers[r][0], workers[src][0]),
+                            nw))
+                    for r, (p, nw) in enumerate(merged):
+                        workers[r][0], weights[r] = p, nw
+        if i == save_step:
+            saved = [w[0] for w in workers]
+    gen.close()
+    with torch.no_grad():
+        state = tree_map(lambda *s: sum(s[1:], s[0]) / n,
+                         *[w[1] for w in workers])
+        if rule == "EASGD":
+            params = center
+        else:
+            params = tree_map(
+                lambda *p: sum(weights[r] * p[r].float()
+                               for r in range(n)).to(p[0].dtype),
+                *[w[0] for w in workers])
+        vb = min(b * n, m.data.n_val)
+        costs = []
+        for batch in m.data.val_batches(vb - vb % n):
+            costs.append(sum(float(m.loss_fn(
+                params, state, to_device({k: v[r * (vb // n):(r + 1) * (
+                    vb // n)] for k, v in batch.items()}, device), None,
+                train=False)[1][1]["cost"]) for r in range(n)) / n)
+    m.cleanup()
+    final = center if rule == "EASGD" else [float(w) for w in weights]
+    return saved, p0, final, sum(costs) / len(costs)
+
+
+def async_check_run(torch, tmp, smi, n, label, model, rule, rcfg, save_step,
+                    res, device):
+    """Phase 11's checks of one run's ranks, and the run against its
+    one-process emulation.  -> its launches summed over the ranks."""
+    import statistics
+
+    name = f"{model}-{rule}"
+    cfg = ASYNC_MODELS[model][0]
+    b = cfg["batch_size"] // n
+    r0 = res[0]
+    losses = [[m["cost"] for m in r["metrics"]] for r in res]
+    check(all(x == x and abs(x) != float("inf") for ls in losses
+              for x in ls), f"async {name}: a loss is not finite: {losses}")
+    # the workers differ between exchanges: after every local step,
+    # before the step's exchange
+    check(all(len({r["pre_digests"][i] for r in res}) == n
+              for i in range(ASYNC_STEPS)), f"async {name}: the workers' "
+          f"params are equal after a local step")
+    if rule == "EASGD":
+        check(all(len({r["center_digests"][i] for r in res}) == 1
+                  for i in range(ASYNC_STEPS)), f"async {name}: the "
+              f"center differs across ranks")
+        check(all(d > 0 for r in res for d in r["drift"]),
+              f"async {name}: no drift before an exchange "
+              f"{[r['drift'] for r in res]}")
+    else:
+        sums = [sum(r["weights"][i] for r in res)
+                for i in range(ASYNC_STEPS)]
+        check(all(abs(s - 1) <= 1e-6 for s in sums), f"async {name}: the "
+              f"weights sum to {sums}")
+    launches = [r["launches"] for r in res]
+    if model == "transformer":
+        want = TRAIN_CFG["n_layers"] * ASYNC_STEPS
+        for r, got in enumerate(launches):
+            check(all(got[k] == want for k in ("flash_fwd", "flash_bwd_dq",
+                                               "flash_bwd_dkv")),
+                  f"async {name}: rank {r} launched {got}, expected {want} "
+                  f"of each flash kernel")
+    else:
+        check(not any(v for got in launches for v in got.values()),
+              f"async {name}: launched {launches}")
+    # against the one-process emulation
+    saved, p0, final, val = async_emulate(torch, model, rule, rcfg, n,
+                                          device, save_step)
+    v0 = _vec(torch, p0)
+    upd = []
+    for r in range(n):
+        mine = torch.load(os.path.join(tmp, f"{name}-r{r}-s{save_step}.pt"))
+        upd.append(_rel(torch, _vec(torch, mine["params"]) - v0,
+                        _vec(torch, saved[r]) - v0))
+    last = torch.load(os.path.join(tmp, f"{name}-r0-s{ASYNC_STEPS}.pt"))
+    if rule == "EASGD":
+        extra = _rel(torch, _vec(torch, last["center"]) - v0,
+                     _vec(torch, final) - v0)
+        extra_ok = extra <= ASYNC_EMU_TOL[2]
+        extra_s = f"center update rel {extra:.3g} (tol {ASYNC_EMU_TOL[2]:g})"
+    else:
+        got = [r["weights"][-1] for r in res]
+        extra = max(abs(a - b) for a, b in zip(got, final))
+        extra_ok = extra <= 1e-6
+        extra_s = f"weights {got} against {final} (|diff| {extra:.3g}, tol 1e-6)"
+    val_rel = abs(r0["val"]["cost"] - val) / abs(val)
+    step50 = statistics.median(r0["step_s"])
+    local50 = statistics.median(s - c for s, c in zip(r0["step_s"],
+                                                      r0["comm_s"]))
+    comm = [c for c in r0["comm_s"] if c > 0]
+    comm50 = statistics.median(comm) if comm else 0.0
+    per_worker = (b * cfg["seq_len"] if model == "transformer" else b)
+    unit = "tokens/s" if model == "transformer" else "images/s"
+    print(f"async {model}[bf16] {rule} {rcfg} {smi}: {n} x {b} on {label}; "
+          f"gossip transport {r0['transport']}; losses rank 0 "
+          f"{losses[0]}; step_ms p50 {step50 * 1e3:.3f} (the exchange "
+          f"included where it ran; without it {local50 * 1e3:.3f}); "
+          f"exchange (comm) ms p50 "
+          f"{comm50 * 1e3:.3f} over {len(comm)} exchanges; {unit} per "
+          f"worker {per_worker / step50:.1f}; peak GiB per rank "
+          f"{[round(r['peak_bytes'] / 2 ** 30, 2) for r in res]}; "
+          f"effective lr {r0['effective_lr']}; launches per rank "
+          f"{launches}; against the one-process emulation: params update "
+          f"after the first exchange (step {save_step}) rel "
+          f"{[round(x, 6) for x in upd]} (tol {ASYNC_EMU_TOL[2]:g}), "
+          f"{extra_s}, validation cost on eval_args {r0['val']['cost']:.6g} "
+          f"against {val:.6g}, rel {val_rel:.3g} (tol "
+          f"{ASYNC_EMU_TOL[0]:g})", flush=True)
+    check(all(x <= ASYNC_EMU_TOL[2] for x in upd), f"async {name}: the "
+          f"ranks' params differ from the emulation's: {upd}")
+    check(extra_ok, f"async {name}: {extra_s}")
+    check(val_rel <= ASYNC_EMU_TOL[0], f"async {name}: validation cost "
+          f"{r0['val']['cost']} against the emulation's {val}")
+    return {k: sum(got[k] for got in launches) for k in launches[0]}
+
+
+def remat_run(torch, remat, batches, device):
+    """ResNet-50 at phase 5's config in bf16, one process: the first
+    step's grads, then ``REMAT_STEPS`` trainer steps on ``batches``.
+    -> (losses, grads, params before and after, BN state after, peak
+    bytes over the steps)."""
+    from theanompi_torch import BSP
+    from theanompi_torch.parallel.trainer import loss_and_grads
+    from theanompi_torch.utils.helper_funcs import to_device
+
+    cfg = {**CONV_CFG, "precision": "bf16", "remat": remat,
+           "n_train": REMAT_STEPS * CONV_CFG["batch_size"]}
+    tr = BSP({"seed": 0, "verbose": False, "prefetch": 0}).init(
+        devices=1, modelfile="theanompi_torch.models.resnet50",
+        modelclass="ResNet50", model_config=cfg, device=device).trainer
+    p0 = tr.params
+    _, _, grads = loss_and_grads(tr.model, tr.params, tr.state,
+                                 to_device(batches[0], device), None)
+    grads = _vec(torch, grads)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lr = tr.model.adjust_hyperp(0)
+    losses = [float(tr.train_iter(b, lr)["cost"]) for b in batches]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = (losses, grads, _vec(torch, p0), _vec(torch, tr.params),
+           _vec(torch, tr.state), peak)
+    tr.model.cleanup()
+    return out
+
+
+def remat_compare(torch, smi, device):
+    """``remat="save_convs"`` against ``"none"``, ResNet-50 bf16 at batch
+    256 on one card: loss, the first step's grads, the update and the BN
+    state after ``REMAT_STEPS`` steps, and both peaks."""
+    import gc
+
+    from theanompi_torch.models.data.imagenet import ImageNetData
+    from theanompi_torch.utils.helper_funcs import to_device
+
+    data = ImageNetData({**CONV_CFG, "n_train": REMAT_STEPS
+                         * CONV_CFG["batch_size"]})
+    gen = data.train_batches(CONV_CFG["batch_size"], 0, seed=0)
+    batches = [to_device(b, device) for _, b in zip(range(REMAT_STEPS), gen)]
+    gen.close()
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        runs = {}
+        for remat in ("none", "save_convs"):
+            runs[remat] = remat_run(torch, remat, batches, device)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    (l0, g0, a0, b0, s0, m0), (l1, g1, a1, b1, s1, m1) = (
+        runs["none"], runs["save_convs"])
+    d = [max(abs(x - y) / abs(x) for x, y in zip(l0, l1)),
+         float(abs(g1.norm() - g0.norm()) / g0.norm()),
+         _rel(torch, b1 - a1, b0 - a0), _rel(torch, s1, s0)]
+    same = (l0 == l1 and torch.equal(g0, g1) and torch.equal(b0, b1)
+            and torch.equal(s0, s1))
+    print(f"remat ResNet-50[bf16] batch {CONV_CFG['batch_size']} {smi}: "
+          f"save_convs against none, {REMAT_STEPS} steps, cuDNN "
+          f"deterministic: losses {l1} against {l0}; loss rel {d[0]:.3g} "
+          f"(tol {REMAT_TOL[0]:g}), first step's grad norm rel {d[1]:.3g} "
+          f"(tol {REMAT_TOL[1]:g}), grads rel "
+          f"{_rel(torch, g1, g0):.3g}, update rel {d[2]:.3g} (tol "
+          f"{REMAT_TOL[2]:g}), BN state rel {d[3]:.3g} (tol "
+          f"{REMAT_TOL[3]:g}); bit-equal: {same}; peak memory over the "
+          f"steps: none {m0 / 2 ** 30:.2f} GiB, save_convs "
+          f"{m1 / 2 ** 30:.2f} GiB", flush=True)
+    check(all(x <= t for x, t in zip(d, REMAT_TOL))
+          and _rel(torch, g1, g0) <= REMAT_TOL[2],
+          f"remat: save_convs differs from none: {d}")
+
+
+def async_phase(torch, smi, kernels):
+    """Phase 11: EASGD and GOSGD on ranks of a process group at full
+    width, each against its one-process emulation; LocalSGD τ 1 against
+    BSP ``psum``; ResNet-50's ``save_convs`` against ``none``.  -> each
+    transformer run's launches over the ranks (``train_easgd2_bf16``,
+    ``train_gosgd2_bf16``)."""
+    import gc
+    import shutil
+    import statistics
+    import tempfile
+
+    from theanompi_torch import dist as tdist
+    from theanompi_torch.parallel.rank_jobs import run_all
+
+    t_phase = time.perf_counter()
+    n, backend, device, _, _ = bsp_layout(torch)
+    cards = [str(tdist.rank_device(device, r)) for r in range(n)]
+    label = ("a card shared by two ranks, collectives staged through the "
+             "host (gloo): not a speed figure" if backend == "gloo" else
+             "one card a rank (NCCL)")
+    print(f"async: {n} ranks, backend {backend}, rank -> card "
+          f"{dict(enumerate(cards))}", flush=True)
+    tmp = tempfile.mkdtemp(prefix="async-")
+    calls = []
+    for model, rule, rcfg, save_step in ASYNC_RUNS:
+        cfg, mfile, mclass = ASYNC_MODELS[model]
+        calls.append(("async_run", ({
+            "rule": rule, "modelfile": mfile, "modelclass": mclass,
+            "model_config": {**cfg, "batch_size": cfg["batch_size"] // n},
+            "rule_config": {**rcfg, "seed": 0},
+            "steps": ASYNC_STEPS, "validate": True, "print_freq": 1,
+            "save_at": [save_step, ASYNC_STEPS],
+            "out": os.path.join(tmp, f"{model}-{rule}"),
+            "allow_tf32": False},)))
+    lsgd = {"modelfile": "theanompi_torch.models.transformer_lm",
+            "modelclass": "TransformerLM",
+            "model_config": {**ASYNC_LSGD_CFG, "batch_size":
+                             ASYNC_LSGD_CFG["batch_size"] // n},
+            "steps": ASYNC_LSGD_STEPS, "allow_tf32": False}
+    calls.append(("async_run", ({**lsgd, "rule": "LocalSGD",
+                                 "rule_config": {"tau": 1, "seed": 0},
+                                 "save_at": [ASYNC_LSGD_STEPS],
+                                 "out": os.path.join(tmp, "lsgd")},)))
+    calls.append(("bsp_run", ({**lsgd, "rule_config": {
+        "exch_strategy": "psum", "seed": 0, "verbose": False},
+        "out": os.path.join(tmp, "bsp"), "save": ["params0", "params"],
+        "save_ranks": [0]},)))
+    t0 = time.perf_counter()
+    res = tdist.spawn(run_all, n, backend, device, (calls,), timeout_s=900)
+    print(f"async: the ranks' jobs took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches_by_path = {}
+    for i, (model, rule, rcfg, save_step) in enumerate(ASYNC_RUNS):
+        got = async_check_run(torch, tmp, smi, n, label, model, rule, rcfg,
+                              save_step, [r[i] for r in res], cards[0])
+        if model == "transformer":
+            launches_by_path[f"train_{rule.lower()}2_bf16"] = got
+        gc.collect()
+        torch.cuda.empty_cache()
+    # LocalSGD τ 1 against BSP psum: the same init, batches and ranks
+    lres = [r[len(ASYNC_RUNS)] for r in res]
+    bres = res[0][len(ASYNC_RUNS) + 1]
+    bsp = torch.load(os.path.join(tmp, "bsp-r0.pt"))
+    mine = torch.load(os.path.join(tmp, f"lsgd-r0-s{ASYNC_LSGD_STEPS}.pt"))
+    v0 = _vec(torch, bsp["params0"])
+    got, want = _vec(torch, mine["params"]), _vec(torch, bsp["params"])
+    upd = _rel(torch, got - v0, want - v0)
+    bound = (ASYNC_LSGD_ULPS * 2.0 ** -24 * want.norm()
+             + ASYNC_LSGD_TOL[2] * (want - v0).norm())
+    worst = float((got - want).norm() / bound)
+    mean_loss = [statistics.fmean(r["metrics"][i]["cost"] for r in lres)
+                 for i in range(ASYNC_LSGD_STEPS)]
+    loss_rel = max(abs(a - m["cost"]) / abs(m["cost"])
+                   for a, m in zip(mean_loss, bres["metrics"]))
+    print(f"async LocalSGD tau 1 against BSP psum, transformer[fp32] {smi}: "
+          f"plain SGD, {ASYNC_LSGD_STEPS} steps, {n} ranks: the workers' "
+          f"mean loss {mean_loss} against {[m['cost'] for m in bres['metrics']]}"
+          f", rel {loss_rel:.3g} (tol {ASYNC_LSGD_TOL[0]:g}); params update "
+          f"after {ASYNC_LSGD_STEPS} steps rel {upd:.3g}; |diff| / "
+          f"({ASYNC_LSGD_ULPS} x 2^-24 |params| + {ASYNC_LSGD_TOL[2]:g} "
+          f"|update|) {worst:.3g} (limit 1)", flush=True)
+    check(loss_rel <= ASYNC_LSGD_TOL[0] and worst <= 1.0,
+          f"async: LocalSGD tau 1 differs from BSP psum (loss {loss_rel}, "
+          f"params {worst} of their limit)")
+    shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat_compare(torch, smi, cards[0])
+    print(f"async: phase 11 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches_by_path
+
+
 def main() -> int:
     import torch
 
@@ -3135,6 +3580,10 @@ def main() -> int:
         # development run: phase 10 only, no result line
         serve_ckpt_phase(torch, smi, K.KERNELS)
         return 0
+    if "--async" in sys.argv[1:]:
+        # development run: phase 11 only, no result line
+        async_phase(torch, smi, K.KERNELS)
+        return 0
     if "--decode" in sys.argv[1:]:
         # development run: kernels 4 and 5 only, no result line
         checks = {"paged_decode": check_paged(torch),
@@ -3190,6 +3639,8 @@ def main() -> int:
     zoo_launches = zoo_phase(torch, smi, K.KERNELS)
     # -- phase 10 ----------------------------------------------------------
     ckpt_serve_launches = serve_ckpt_phase(torch, smi, K.KERNELS)
+    # -- phase 11 ----------------------------------------------------------
+    async_launches = async_phase(torch, smi, K.KERNELS)
 
     # the serving slice's kernels report their serve run; the flash
     # kernels the training run, which launches all three
@@ -3204,6 +3655,8 @@ def main() -> int:
                         "train_zoo_bf16": zoo_launches[k.name],
                         **{path: got[k.name] for path, got
                            in ckpt_serve_launches.items()},
+                        **{path: got[k.name] for path, got
+                           in async_launches.items()},
                         **{path: got[k.name]
                            for path, got in bsp_launches.items()}}
                for k in K.KERNELS}

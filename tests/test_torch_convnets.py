@@ -251,8 +251,10 @@ def test_full_depth_param_count_and_refusals():
     n = sum(x.numel() for _, x in tree_leaves_with_path(params))
     assert 24e6 < n < 27e6, n
     assert len(tree_leaves_with_path(state)) == 2 * 53  # 53 BNs
-    with pytest.raises(NotImplementedError, match="save_convs"):
-        ResNet50({**RESNET, "remat": "save_convs"})
+    # remat="save_convs" builds (its numerics: test_torch_resnet_remat.py)
+    blocks = [b for b in ResNet50({**RESNET, "remat": "save_convs"})
+              .net.layers if hasattr(b, "remat")]
+    assert [b.remat for b in blocks] == ["save_convs"] * 4
     # sync-BN over the process group ("data") builds; another axis raises
     WideResNet({**WRN, "bn_axis": "data"})
     with pytest.raises(ValueError, match="one axis"):

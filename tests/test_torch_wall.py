@@ -6,7 +6,8 @@ default.
   (AlexNet, VGG, GoogLeNet, the LSTM, DCGAN) and their data planes, the process groups and the ranks' jobs, the native crop, the
   prefetcher, the loader pool and the token stream, the checkpoints and
   the exit codes and event log, the fault plan, the serving lifecycle
-  files and the live rollout) and ``chip_smoke.py`` (as a module), and
+  files and the live rollout, the async rules and the rule-comparison
+  and convergence harnesses) and ``chip_smoke.py`` (as a module), and
   runs the checkpoint scrubber (``--verify``) on an empty directory,
   without ``jax`` or ``theanompi_tpu`` ever entering ``sys.modules``
   (the spawned ranks' own modules are checked by
@@ -73,6 +74,11 @@ def test_import_wall_in_a_fresh_interpreter():
         "import theanompi_torch.resilience.faults\n"
         "import theanompi_torch.serving.lifecycle\n"
         "import theanompi_torch.serving.rollout\n"
+        "import theanompi_torch.parallel.easgd\n"
+        "import theanompi_torch.parallel.gosgd\n"
+        "import theanompi_torch.utils.rulecomp\n"
+        "import theanompi_torch.utils.converge\n"
+        "from theanompi_torch import EASGD, LocalSGD, GOSGD\n"
         "import tempfile\n"
         "from theanompi_torch.utils.checkpoint import main as scrub\n"
         "assert scrub(['--verify', tempfile.mkdtemp()]) == 0\n"
@@ -192,7 +198,7 @@ def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--resume-reshard"], ["--telemetry-dir", "tel"], ["--elastic"],
-    ["--supervise"], ["--compile-cache-dir", "x"], ["--rule", "EASGD"],
+    ["--supervise"], ["--compile-cache-dir", "x"], ["--max-restarts", "2"],
     ["--hang-timeout", "5"], ["--sentinel", "abort"]])
 def test_launcher_unported_flags_exit_78(flags, capsys):
     from theanompi_torch.launcher import main as launch

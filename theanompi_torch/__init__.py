@@ -9,7 +9,8 @@ Slice 1 serves the dense ``TransformerLM`` end to end; slice 2 trains it
 through the BSP rule on one card (:class:`BSP`, ``python -m
 theanompi_torch.launcher``); slice 10 trains the conv nets, ResNet-50 and
 the Wide-ResNet, through the same rule, and slice 17 the rest of the zoo
-(AlexNet, VGG-16/11, GoogLeNet, the PTB LSTM, DCGAN/WGAN):
+(AlexNet, VGG-16/11, GoogLeNet, the PTB LSTM, DCGAN/WGAN), and slice 20
+the async rules, EASGD, LocalSGD and GOSGD:
 
 - :mod:`theanompi_torch.parallel.mesh` — ``Precision`` policies and the
   device rule (``resolve_device``);
@@ -35,8 +36,15 @@ the Wide-ResNet, through the same rule, and slice 17 the rest of the zoo
   (:mod:`theanompi_torch.models.data.stream`);
 - :mod:`theanompi_torch.ops.losses`, :mod:`theanompi_torch.ops.opt` — the
   fused chunked LM cross entropy, SGD;
-- :mod:`theanompi_torch.parallel.bsp` — the BSP rule and its trainer, and
-  :mod:`theanompi_torch.launcher`, the port's ``tmlauncher``;
+- :mod:`theanompi_torch.parallel.bsp` — the BSP rule and its trainer;
+  :mod:`theanompi_torch.parallel.easgd` and
+  :mod:`theanompi_torch.parallel.gosgd` — the async rules (``EASGD``,
+  ``LocalSGD``, ``GOSGD``) on :mod:`theanompi_torch.parallel.stacked`'s
+  one-worker-a-rank layout; :mod:`theanompi_torch.launcher`, the port's
+  ``tmlauncher`` (``--rule``);
+- :mod:`theanompi_torch.utils.rulecomp` and
+  :mod:`theanompi_torch.utils.converge` — the rules trained to a target,
+  and the zoo's convergence rows (``CONVERGE_cuda.json``);
 - :mod:`theanompi_torch.serving` — paged KV cache, engine, prefix cache,
   continuous-batching scheduler and the ``python -m
   theanompi_torch.serving`` CLI;
@@ -48,11 +56,19 @@ kernel: the CUDA sources compile at first use.
 """
 
 
-def __getattr__(name):
-    # ``from theanompi_torch import BSP``, imported on first use
-    if name == "BSP":
-        from theanompi_torch.parallel.bsp import BSP
+#: the rules, by name, and the module that holds each
+RULES = {"BSP": "theanompi_torch.parallel.bsp",
+         "EASGD": "theanompi_torch.parallel.easgd",
+         "LocalSGD": "theanompi_torch.parallel.easgd",
+         "GOSGD": "theanompi_torch.parallel.gosgd"}
 
-        return BSP
+
+def __getattr__(name):
+    # ``from theanompi_torch import BSP`` (or EASGD, LocalSGD, GOSGD),
+    # imported on first use
+    if name in RULES:
+        import importlib
+
+        return getattr(importlib.import_module(RULES[name]), name)
     raise AttributeError(f"module 'theanompi_torch' has no attribute "
                          f"{name!r}")

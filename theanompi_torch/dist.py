@@ -124,12 +124,26 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
 def rank_device(device, local: int) -> torch.device:
     """The device of local rank ``local`` for a requested ``device``:
     ``"cpu"`` as is, ``"cuda"`` (no index) the rank's own card
-    ``cuda:<local>``, ``"cuda:K"`` that card for every rank (ranks that
-    share a card run gloo)."""
+    ``cuda:<local>`` (with more ranks than cards, the ranks take the cards
+    in turn: ``cuda:<local mod count>``, over gloo), ``"cuda:K"`` that card
+    for every rank (ranks that share a card run gloo)."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", local)
+        return torch.device("cuda", local % max(1, torch.cuda.device_count()))
     return dev
+
+
+def group_layout(n: int, device=None) -> tuple[str, str]:
+    """-> (backend, device) for ``n`` local ranks of a harness (rulecomp,
+    converge): ``device`` ``"cpu"`` gloo ranks on the host; otherwise one
+    card a rank under NCCL where there are cards enough, else gloo ranks
+    taking the cards in turn (NCCL refuses two ranks on one card)."""
+    if device is not None and torch.device(device).type == "cpu":
+        return "gloo", "cpu"
+    dev = torch.device(device or "cuda")
+    if dev.index is None and n <= torch.cuda.device_count():
+        return "nccl", "cuda"
+    return "gloo", str(dev)
 
 
 def free_port() -> int:

@@ -1,7 +1,8 @@
 """``python -m theanompi_torch.launcher``: the port's ``tmlauncher``.
 
 Counterpart of ``theanompi_tpu/launcher.py``: the reference's flag names
-for what the port carries — ``--rule BSP``, ``--modelfile``,
+for what the port carries — ``--rule BSP|EASGD|LocalSGD|GOSGD``,
+``--modelfile``,
 ``--modelclass``, ``--set K=V`` (model config), ``--rule-set K=V`` (rule
 config), ``--config-json`` (a JSON file ``{"model": {...}, "rule":
 {...}}`` that the ``--set`` / ``--rule-set`` pairs override),
@@ -10,8 +11,13 @@ config), ``--config-json`` (a JSON file ``{"model": {...}, "rule":
 N|all`` — plus ``--device`` (the card by default; ``cpu`` only when
 asked).  The reference's other flags (the reshard, telemetry,
 supervision, ...) are accepted by the parser and refused with exit 78
-``tmlauncher: error: config: --flag not yet ported``; so are the rules
-other than BSP.
+``tmlauncher: error: config: --flag not yet ported``.
+
+The async rules take their keys by ``--rule-set``: ``tau``, ``alpha`` and
+``scale_lr`` (EASGD and LocalSGD), ``p_push`` (GOSGD); e.g. ``--rule
+EASGD --rule-set tau=4 --devices 4``.  Each rank trains its own worker
+and rank 0 prints the validation of the center (EASGD, LocalSGD) or of
+the weighted consensus (GOSGD).
 
 Checkpoints: ``--checkpoint-dir D`` saves at every epoch boundary (and
 every ``--rule-set checkpoint_every_n_iters=N`` steps) in the reference's
@@ -109,7 +115,8 @@ def build_parser() -> argparse.ArgumentParser:
         "(PyTorch/CUDA port).", allow_abbrev=False)
     p.add_argument("--rule", default="BSP",
                    choices=["BSP", "EASGD", "GOSGD", "LocalSGD"],
-                   help="training rule (BSP; the others are not yet ported)")
+                   help="training rule (the async rules' keys by "
+                   "--rule-set: tau, alpha, scale_lr, p_push)")
     p.add_argument("--modelfile",
                    default="theanompi_torch.models.transformer_lm")
     p.add_argument("--modelclass", default="TransformerLM")
@@ -164,12 +171,10 @@ def _error_line(phase: str, e: BaseException) -> None:
 
 def build_configs(args) -> tuple[dict, dict]:
     """-> (model config, rule config); raises :class:`ConfigError` on a
-    flag or rule this slice does not carry."""
+    flag this slice does not carry."""
     for flag, dest in NOT_PORTED:
         if getattr(args, dest) not in (None, False):
             raise ConfigError(f"{flag} not yet ported")
-    if args.rule != "BSP":
-        raise ConfigError(f"--rule {args.rule} not yet ported")
     model_config: dict = {}
     rule_config: dict = {}
     if args.config_json:
@@ -226,7 +231,8 @@ def worker_count(args, on_cpu: bool) -> int:
 
 
 def run_rank(device, job: dict) -> tuple[int, dict | None]:
-    """One rank of a launcher run (every rank calls it): -> (exit code,
+    """One rank of a launcher run (every rank calls it; ``job["rule"]``
+    names the rule, BSP when absent): -> (exit code,
     final validation metrics, rank 0's; None elsewhere or on failure).
     An init failure on any rank (a resume's included) ends every rank
     with the worst code; a training failure raises (the spawner ends the
@@ -234,14 +240,15 @@ def run_rank(device, job: dict) -> tuple[int, dict | None]:
     import torch
     import torch.distributed as dist
 
+    import theanompi_torch
     from theanompi_torch import dist as tdist
-    from theanompi_torch.parallel.bsp import BSP
     from theanompi_torch.utils.checkpoint import (
         CheckpointCorruptError,
         CheckpointFingerprintError,
     )
 
-    code, rule = 0, BSP(config=job["rule_config"])
+    rule_cls = getattr(theanompi_torch, job.get("rule", "BSP"))
+    code, rule = 0, rule_cls(config=job["rule_config"])
     try:
         rule.init(devices=tdist.world(), modelfile=job["modelfile"],
                   modelclass=job["modelclass"],
@@ -295,7 +302,8 @@ def main(argv: list[str] | None = None) -> int:
         print(f"tmlauncher: error: config: {e}", file=sys.stderr, flush=True)
         return EXIT_CONFIG
     job = {"model_config": model_config, "rule_config": rule_config,
-           "modelfile": args.modelfile, "modelclass": args.modelclass}
+           "modelfile": args.modelfile, "modelclass": args.modelclass,
+           "rule": args.rule}
     backend = "gloo" if on_cpu else "nccl"
 
     try:

@@ -85,6 +85,11 @@ class Model:
                 lr *= self.config.get("lr_decay_factor", 0.1)
         return lr
 
+    def scale_lr(self, size: int) -> None:
+        """Linear LR scaling with the worker count (the reference's EASGD
+        hook, :115-117)."""
+        self.config["lr"] = self.config.get("lr", 0.1) * size
+
     def cleanup(self) -> None:
         if self._data is not None:
             self._data.cleanup()

@@ -12,13 +12,31 @@ branches start as the identity.  The convolutions and BatchNorm's
 arithmetic run in cuDNN and PyTorch's own kernels: the reference wrote no
 kernel for this model.
 
-``remat="save_convs"`` (the reference's recompute of the BN-ReLU chain in
-the backward) is not ported yet and raises (ROADMAP queue 1 item 9).
+``remat="save_convs"`` (the reference's ``jax.checkpoint`` of each block
+with a save-only-conv-outputs policy, :33-48 and :92-109): each block runs
+under ``torch.utils.checkpoint`` (non-reentrant) with a selective policy
+that keeps the convolutions' outputs and recomputes everything else — the
+BN-ReLU chain — in the backward.  A bytes lever, not a memory-capacity
+one: the backward re-reads the conv outputs and recomputes the
+elementwise work instead of reading stored post-activation tensors.
+BatchNorm's running state is the forward's: the layer is functional (it
+returns the new state), so the recompute's state is dropped and the state
+moves once a step.  Under sync-BN the recompute issues the statistics'
+all-reduces again, in the same order on every rank, as the reference's
+recompute does.
 """
 
 from __future__ import annotations
 
+import functools
+
+import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from theanompi_torch.models.contract import SupervisedModel
 from theanompi_torch.models.data.imagenet import ImageNetData
@@ -26,17 +44,30 @@ from theanompi_torch.ops import initializers as init_lib
 from theanompi_torch.ops import layers as L
 
 
+def _save_convs(ctx, op, *args, **kwargs):
+    """The ``save_convs`` policy: keep convolution outputs, recompute the
+    rest."""
+    if op == torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_SAVE_CONVS = functools.partial(create_selective_checkpoint_contexts,
+                                _save_convs)
+
+
 class _Bottleneck(L.StatefulLayer):
     """1x1 reduce -> 3x3 (the stride) -> 1x1 expand to ``4 * filters``,
     BN after each conv and ReLU after the first two; a 1x1 projection and
     its BN on the shortcut when the width or stride changes; ReLU of the
-    sum."""
+    sum.  ``remat="save_convs"``: see the module docstring."""
 
     def __init__(self, filters: int, stride: int = 1, bn_axis=None,
-                 zero_init_last: bool = True):
+                 zero_init_last: bool = True, remat: str = "none"):
         super().__init__()
         self.filters = filters
         self.stride = stride
+        self.remat = remat
         last_scale = init_lib.zeros if zero_init_last else init_lib.ones
         self.conv1 = L.Conv2D(filters, 1, use_bias=False)
         self.bn1 = L.BatchNorm(axis_name=bn_axis)
@@ -67,6 +98,12 @@ class _Bottleneck(L.StatefulLayer):
 
     def apply_stateful(self, params, state, x, train: bool = False,
                        gen=None):
+        if self.remat == "save_convs" and torch.is_grad_enabled():
+            return checkpoint(self._apply, params, state, x, train,
+                              use_reentrant=False, context_fn=_SAVE_CONVS)
+        return self._apply(params, state, x, train)
+
+    def _apply(self, params, state, x, train: bool):
         new_state = dict(state)
         h = x
         for name in self._MAIN:
@@ -132,7 +169,7 @@ class ResNet50(SupervisedModel):
         "bn_axis": None,
         "bn_scale_zero": True,
         "stage_blocks": (3, 4, 6, 3),
-        # "save_convs" is not ported yet (raises)
+        # "save_convs": recompute the BN-ReLU chain in the backward
         "remat": "none",
         # "space_to_depth": the math-identical stem; "conv7" the plain one
         "stem": "conv7",
@@ -150,9 +187,6 @@ class ResNet50(SupervisedModel):
         if cfg["remat"] not in ("none", "save_convs"):
             raise ValueError(f"remat {cfg['remat']!r} not in ('none', "
                              f"'save_convs')")
-        if cfg["remat"] == "save_convs":
-            raise NotImplementedError(
-                "remat='save_convs' not yet ported (ROADMAP queue 1 item 9)")
         stem = (_SpaceToDepthStem(64) if cfg["stem"] == "space_to_depth"
                 else L.Conv2D(64, 7, stride=2, padding=3, use_bias=False))
         layers: list[L.Layer] = [
@@ -168,7 +202,8 @@ class ResNet50(SupervisedModel):
                 stride = 2 if (stage > 0 and i == 0) else 1
                 layers.append(_Bottleneck(
                     w, stride=stride, bn_axis=bn_axis,
-                    zero_init_last=cfg["bn_scale_zero"]))
+                    zero_init_last=cfg["bn_scale_zero"],
+                    remat=cfg["remat"]))
         layers += [
             L.GlobalAvgPool(),
             L.Dense(cfg["n_classes"], w_init=init_lib.glorot_normal),

@@ -17,13 +17,10 @@ the same run; a resume lands in the phase its epoch dictates.
 
 from __future__ import annotations
 
-import torch
-
 from theanompi_torch.dist import DATA_AXIS
 from theanompi_torch.parallel.exchanger import BUCKETED_STRATEGIES, Exchanger
 from theanompi_torch.parallel.overlap import RampSchedule
 from theanompi_torch.parallel.trainer import BaseTrainer, Rule
-from theanompi_torch.tree import tree_to
 
 
 class BSPTrainer(BaseTrainer):
@@ -57,18 +54,7 @@ class BSPTrainer(BaseTrainer):
         if self.exchanger.fuses_update:
             return self.exchanger.zero1_init_opt_state(
                 self.optimizer, self.params, self.n_workers)
-        return self.model.init_opt_state(self.optimizer, self.params)
-
-    def init_state(self) -> None:
-        """Fresh fp32 params and model state from a CPU generator seeded
-        ``seed + 1`` (the reference's ``PRNGKey(seed + 1)``; the same
-        values whatever the device, so every rank starts alike) and their
-        optimizer state, on the device."""
-        params, state = self.model.init_params(
-            torch.Generator().manual_seed(self.seed + 1))
-        self.params = tree_to(params, self.device)
-        self.state = tree_to(state, self.device)
-        self.opt_state = self.init_opt_state()
+        return super().init_opt_state()
 
     def _fingerprint_extra(self) -> dict:
         """The base strategy under a ramp (the active one varies by

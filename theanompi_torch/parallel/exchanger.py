@@ -337,20 +337,33 @@ def _unpack(buf: torch.Tensor, bucket: _Bucket) -> dict:
     return out
 
 
-def fused_pmean(tree):
-    """Mean-reduce every floating leaf over the group with one collective
-    per dtype (the trainer's metrics and model state); other leaves pass
-    through, and at a world of 1 the tree comes back as it is."""
+def _fused_reduce(tree, mean: bool):
     n = tdist.world()
     if n == 1:
         return tree
     leaves = flatten(tree)
     out = list(leaves)
     for bucket in _bucket_layout(leaves, bucket_bytes=2**62, n=1):
-        red = _all_reduce(_pack(leaves, bucket)) / n
+        red = _all_reduce(_pack(leaves, bucket))
+        if mean:
+            red = red / n
         for i, arr in _unpack(red, bucket).items():
             out[i] = arr
     return unflatten(tree, out)
+
+
+def fused_pmean(tree):
+    """Mean-reduce every floating leaf over the group with one collective
+    per dtype (the trainer's metrics and model state); other leaves pass
+    through, and at a world of 1 the tree comes back as it is."""
+    return _fused_reduce(tree, mean=True)
+
+
+def fused_psum(tree):
+    """:func:`fused_pmean`'s sum: every floating leaf summed over the
+    group, one collective per dtype, each leaf in its own dtype (the async
+    rules' exchanges)."""
+    return _fused_reduce(tree, mean=False)
 
 
 class _Pending:

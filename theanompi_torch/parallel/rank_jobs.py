@@ -15,6 +15,12 @@ a group: the one-process run they are held against.
   rank, with what the checks need from the first step;
 - :func:`launch` — one launcher run on each rank (``launcher.run_rank``:
   training, checkpoints, resume), what ``--devices N`` runs;
+- :func:`async_run` — steps of an async rule (EASGD, LocalSGD, GOSGD)
+  on each rank, with its worker, center and weights after chosen steps;
+- :func:`rule_exchange_cases` — the async rules' exchanges (elastic,
+  average, a gossip round under a transport) of per-rank inputs;
+- :func:`warmup_case` — a rule's ``warmup`` against a fresh init;
+  :func:`compare_rules` — the rule comparison's grid on each rank;
 - :func:`pmean_case`, :func:`loaded_modules`, and :func:`run_all`, which
   runs several jobs in one spawn.
 """
@@ -408,8 +414,198 @@ def launch(device, job: dict) -> tuple:
     return code, val, out.getvalue()
 
 
+def _load_init(tr, path: str) -> None:
+    """Start ``tr`` from the ``{"params", "state"}`` of ``path``: the
+    optimizer state fresh, an async rule's center that init too."""
+    trees = torch.load(path)
+    tr.params = tree_to(trees["params"], tr.device)
+    tr.state = tree_to(trees["state"], tr.device)
+    tr.opt_state = tr.init_opt_state()
+    if getattr(tr, "center", None) is not None:
+        tr.center = tree_to(trees["params"], tr.device)
+
+
+def async_run(device, job: dict) -> dict:
+    """Steps of an async rule on this rank.  ``job``: ``rule`` (``EASGD``,
+    ``LocalSGD`` or ``GOSGD``), ``modelfile``, ``modelclass``,
+    ``model_config``, ``rule_config`` (as ``init`` takes them);
+    ``steps``; ``init`` (as :func:`bsp_run`'s); ``batches``, an ``.npz``
+    of the global batches stacked ``[steps, B, ...]`` (None: the model's
+    epoch-0 batches); ``allow_tf32`` (as :func:`bsp_run`'s); ``validate``
+    (bool: the validation metrics on ``eval_args`` after the steps);
+    ``save_at``, the steps after which rank r writes ``<out>-r<r>-s<i>.pt``
+    (params, state, and ``center`` or ``weights``); ``print_freq`` (the
+    recorder's; 1 fences every step's ``calc`` and ``comm``).  -> per-step
+    metrics, host seconds a step (each ends in a device sync), the
+    recorder's ``comm`` seconds a step (0 where no exchange ran), the
+    drift from the center before each EASGD exchange, the params'
+    checksums (:func:`digest`) after each step's local update and after
+    the step, the center's after each step, the weight after
+    each step (GOSGD), the validation metrics, the kernels' launches over
+    the steps, peak device bytes and the gossip transport."""
+    import theanompi_torch
+    from theanompi_torch import kernels as K
+    from theanompi_torch.ops import flash_attention  # noqa: F401
+    from theanompi_torch.ops import paged_attention  # noqa: F401
+    from theanompi_torch.parallel.easgd import worker_drift
+
+    if job.get("allow_tf32") is not None:
+        torch.backends.cuda.matmul.allow_tf32 = bool(job["allow_tf32"])
+        torch.backends.cudnn.allow_tf32 = bool(job["allow_tf32"])
+    rule_config = {"verbose": False, **(job.get("rule_config") or {})}
+    if job.get("print_freq"):
+        rule_config["print_freq"] = job["print_freq"]
+    rule = getattr(theanompi_torch, job["rule"])(rule_config).init(
+        devices=tdist.world(), modelfile=job["modelfile"],
+        modelclass=job["modelclass"], model_config=job["model_config"],
+        device=device)
+    tr = rule.trainer
+    if job.get("init"):
+        _load_init(tr, job["init"])
+    steps = int(job["steps"])
+    lo, hi = tr.rows(tr.global_batch)
+    if job.get("batches"):
+        with np.load(job["batches"]) as z:
+            stacked = {k: z[k] for k in z.files}
+        batches = [{k: v[i][lo:hi] for k, v in stacked.items()}
+                   for i in range(steps)]
+    else:
+        gen = tr.train_batches(0)
+        batches = [b for _, b in zip(range(steps), gen)]
+        gen.close()
+    cuda = tr.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(tr.device)
+        torch.cuda.reset_peak_memory_stats(tr.device)
+    lr = tr.model.adjust_hyperp(0)
+    save_at = set(job.get("save_at") or ())
+    center = getattr(tr, "center", None) is not None
+    out = {"metrics": [], "step_s": [], "comm_s": [], "drift": [],
+           "digests": [], "pre_digests": [], "center_digests": [],
+           "weights": []}
+    exchange = tr.post_step
+
+    def post_step():  # the worker's params before the step's exchange
+        out["pre_digests"].append(digest(tr.params))
+        exchange()
+
+    tr.post_step = post_step
+    for k in K.KERNELS:
+        k.launches = 0
+    for i, batch in enumerate(batches, 1):
+        if center and i % tr.tau == 0:
+            out["drift"].append(float(worker_drift(tr.params, tr.center)))
+        t0 = time.perf_counter()
+        m = tr.train_iter(batch, lr)
+        if cuda:
+            torch.cuda.synchronize(tr.device)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["comm_s"].append(tr.recorder.time_history["comm"][-1])
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["digests"].append(digest(tr.params))
+        if center:
+            out["center_digests"].append(digest(tr.center))
+        if getattr(tr, "weights", None) is not None:
+            out["weights"].append(float(tr.weights))
+        if job.get("out") and i in save_at:
+            keep = {"params": tr.params, "state": tr.state}
+            keep.update({k: getattr(tr, k) for k in ("center", "weights")
+                         if getattr(tr, k, None) is not None})
+            torch.save(tree_to(keep, "cpu"),
+                       f"{job['out']}-r{tdist.rank()}-s{i}.pt")
+    out["launches"] = {k.name: k.launches for k in K.KERNELS}
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated(tr.device)
+                         if cuda else 0)
+    out["val"] = tr.validate(0) if job.get("validate") else None
+    out["transport"] = getattr(tr, "transport", None)
+    out["device"] = str(tr.device)
+    out["global_batch"] = tr.global_batch
+    out["effective_lr"] = tr.model.config.get("lr")
+    return out
+
+
+def warmup_case(device, job: dict) -> dict:
+    """``trainer.warmup()`` of a rule on this rank (``job``: ``rule``,
+    ``modelfile``, ``modelclass``, ``model_config``, ``rule_config``):
+    -> the checksums (:func:`digest`) of the params, state, optimizer
+    state and the rule's center or weights after ``init``, after one step
+    and after ``warmup``, and the counters after it."""
+    import theanompi_torch
+
+    rule = getattr(theanompi_torch, job["rule"])(
+        {"verbose": False, **job.get("rule_config", {})}).init(
+        devices=tdist.world(), modelfile=job["modelfile"],
+        modelclass=job["modelclass"], model_config=job["model_config"],
+        device=device)
+    tr = rule.trainer
+
+    def sums():
+        return {k: digest(v) for k, v in tr.checkpoint_trees().items()}
+
+    fresh = sums()
+    gen = tr.train_batches(0)
+    tr.train_iter(next(iter(gen)), tr.model.adjust_hyperp(0))
+    gen.close()
+    stepped = sums()
+    tr.init_state()
+    tr.reset_iter()
+    tr.warmup()
+    return {"fresh": fresh, "stepped": stepped, "warm": sums(),
+            "iteration": tr.iteration, "epoch": tr.epoch,
+            "comm_segments": len(tr.recorder.time_history["comm"])}
+
+
+def rule_exchange_cases(device, in_path: str, out_dir: str, cases) -> None:
+    """The async rules' exchanges on per-rank inputs.  ``in_path``: an
+    ``.npz`` of a worker tree ``"p/a/b" -> [n, ...]`` (row r this rank's),
+    a center ``"c/a/b"`` (the same on every rank) and ``"w"`` ``[n]``
+    (the ranks' gossip weights).  ``cases``: ``[(name, "elastic",
+    alpha) | (name, "average") | (name, "gossip", push mask, shift,
+    transport), ...]``, each from the inputs: EASGD's
+    :func:`~theanompi_torch.parallel.easgd.elastic_exchange`, LocalSGD's
+    average, one :func:`~theanompi_torch.parallel.gosgd.gossip_merge`.
+    Writes ``out_dir/<name>-r<rank>.npz``: the new worker tree (``p/``)
+    and center (``c/``) or weight (``w``)."""
+    from theanompi_torch.parallel.easgd import elastic_exchange
+    from theanompi_torch.parallel.gosgd import gossip_merge
+    from theanompi_torch.parallel.trainer import pmean_floats
+
+    r = tdist.rank()
+    with np.load(in_path) as z:
+        params = _tree({k[2:]: z[k][r] for k in z.files
+                        if k.startswith("p/")}, device)
+        center = _tree({k[2:]: z[k] for k in z.files
+                        if k.startswith("c/")}, device)
+        weight = torch.from_numpy(np.array(z["w"][r])).to(device)
+    for name, kind, *args in cases:
+        if kind == "elastic":
+            p, c = elastic_exchange(params, center, float(args[0]))
+            out = {**{f"c/{k}": v for k, v in _flat(c).items()}}
+        elif kind == "average":
+            with torch.no_grad():
+                p = pmean_floats(params)
+            out = {}
+        else:
+            push, shift, transport = args
+            p, w = gossip_merge(params, weight, np.asarray(push, np.float32),
+                                int(shift), transport)
+            out = {"w": w.cpu().numpy()}
+        out.update({f"p/{k}": v for k, v in _flat(p).items()})
+        np.savez(os.path.join(out_dir, f"{name}-r{r}.npz"), **out)
+
+
+def compare_rules(device, kwargs: dict) -> dict:
+    """:func:`theanompi_torch.utils.rulecomp.compare_rules` on this rank
+    (``kwargs`` its arguments but the device)."""
+    from theanompi_torch.utils import rulecomp
+
+    return rulecomp.compare_rules(device=device, **kwargs)
+
+
 JOBS = {"exchange_cases": exchange_cases, "bsp_run": bsp_run,
-        "launch": launch,
+        "launch": launch, "async_run": async_run,
+        "rule_exchange_cases": rule_exchange_cases,
+        "warmup_case": warmup_case, "compare_rules": compare_rules,
         "zero1_update_cases": zero1_update_cases, "pmean_case": pmean_case,
         "loaded_modules": loaded_modules}
 

@@ -38,6 +38,19 @@ A model that supplies ``make_custom_step`` (the GAN) owns its inner
 step (:103-130); the rule keeps the metrics' and the state's mean, and
 refuses ``n_subb``, ``zero1`` and overlap for it.
 
+With no exchanger (the async rules, :mod:`theanompi_torch.parallel.easgd`
+and :mod:`~theanompi_torch.parallel.gosgd`) the step is collective-free:
+``make_local_step(stacked=True)`` (:76-110), the GAN's inner step
+included.  Each rank then keeps its own worker's params, state and
+optimizer state (rank r holds row r of the reference's stacked ``[n,
+...]`` trees), its metrics are its own, and the rule's exchange runs in
+:meth:`BaseTrainer.post_step` after every step.  The other hooks of the
+reference's :class:`BaseTrainer` (:454-544): ``warmup_exchange``,
+``warmup`` (every path once, then a fresh init, for timing harnesses),
+``reset_iter`` and ``eval_args`` (what validation evaluates: the async
+rules' center or consensus).  :func:`require_data_parallel_mesh` (:290)
+is the async rules' refusal of sharded axes.
+
 Under ``zero1`` (``exchanger.fuses_update``) the exchange is the update
 (:170-178): :meth:`Exchanger.exchange_and_update` takes the grads, the
 optimizer state and the params.  With ``exchanger.overlap`` at a world
@@ -97,13 +110,15 @@ from theanompi_torch.parallel.exchanger import (
     fused_pmean,
 )
 from theanompi_torch.parallel.mesh import resolve_device
-from theanompi_torch.tree import tree_leaves_with_path, tree_map
+from theanompi_torch.tree import tree_leaves_with_path, tree_map, tree_to
 from theanompi_torch.utils import checkpoint as ckpt_lib
 from theanompi_torch.utils.helper_funcs import import_model, to_device
 from theanompi_torch.utils.recorder import Recorder
 
-#: rule keys of the reference whose machinery is not ported yet: a config
-#: that sets one raises instead of training without it
+#: keys of the reference's rule config whose machinery is not ported yet
+#: (every rule is: BSP, EASGD, LocalSGD and GOSGD); a config that sets one
+#: raises instead of training without it.  ``n_model``, ``n_seq`` and
+#: ``n_pipe`` pass at 1, which shards nothing
 NOT_PORTED_KEYS = (
     "resume_reshard", "telemetry_dir",
     "telemetry_max_bytes", "telemetry_keep", "telemetry_health",
@@ -112,12 +127,33 @@ NOT_PORTED_KEYS = (
     "sentinel_max_skips", "sentinel_max_rollbacks", "watchdog",
     "watchdog_multiple", "watchdog_min_s", "watchdog_poll_s",
     "heartbeat_path", "handle_preemption", "n_model", "n_seq", "n_pipe")
+#: the rule keys of the sharded mesh axes, by the reference's axis name
+AXIS_KEYS = {"model": "n_model", "seq": "n_seq", "pipe": "n_pipe"}
 
 
 #: the classes of a resume's error that every rank raises alike (the
 #: last stands for any other)
 _RESUME_ERRORS = (ckpt_lib.CheckpointChainExhausted,
                   ckpt_lib.CheckpointFingerprintError, RuntimeError)
+
+
+def pmean_floats(tree):
+    """The mean of every floating leaf over the ranks, other leaves
+    passing through (the reference's :57): one collective a dtype."""
+    return fused_pmean(tree)
+
+
+def require_data_parallel_mesh(config: dict, rule_name: str) -> None:
+    """Refuse sharded axes for the async rules (the reference's :290):
+    ``n_model``, ``n_seq`` or ``n_pipe`` above 1 in ``config``.  Their
+    per-worker layout ignores the model's param specs, so a
+    tensor-parallel layer's collectives would double-count."""
+    for axis, key in AXIS_KEYS.items():
+        size = int(config.get(key) or 1)
+        if size > 1:
+            raise ValueError(
+                f"{rule_name} is data-parallel only: mesh axis {axis!r} has "
+                f"size {size} (use BSP for tp/sp/pp shardings)")
 
 
 def _leaves(tree) -> list:
@@ -200,20 +236,23 @@ def _custom_step(model, optimizer, exchanger, seed: int, n_subb: int):
     (``make_custom_step(optimizer, seed, exchanger)``, the GAN's two
     updates; the reference's :103-130): the inner step does the
     forwards, backwards, exchanges and updates, the rule the mean of the
-    metrics and the state over the ranks.  ``n_subb > 1``, ``zero1`` and
-    overlap need the standard grad step and are refused (``ValueError``,
-    the launcher's 78)."""
+    metrics and the state over the ranks (with no exchanger, none: the
+    worker's own).  ``n_subb > 1``, ``zero1`` and overlap need the
+    standard grad step and are refused (``ValueError``, the launcher's
+    78)."""
     who = f"{type(model).__name__} supplies make_custom_step"
     if n_subb > 1:
         raise ValueError(f"n_subb={n_subb} requires the standard grad step; "
                          f"{who}")
-    if exchanger.fuses_update:
+    if exchanger is not None and exchanger.fuses_update:
         raise ValueError(f"exch_strategy 'zero1' requires the standard grad "
                          f"step; {who}")
-    if exchanger.overlap:
+    if exchanger is not None and exchanger.overlap:
         raise ValueError(f"exch_overlap requires the standard grad step; "
                          f"{who}")
     inner = model.make_custom_step(optimizer, seed, exchanger)
+    if exchanger is None:
+        return inner
 
     def custom_step(params, state, opt_state, batch, lr, step):
         new_params, new_state, new_opt_state, metrics = inner(
@@ -236,10 +275,14 @@ def make_train_step(model, optimizer, exchanger, seed: int, device):
     model state averaged over the ranks (one collective a dtype; already
     equal under sync-BN, the mean repairs drift otherwise).  A model with
     ``make_custom_step`` runs its own inner step instead
-    (:func:`_custom_step`)."""
+    (:func:`_custom_step`).  ``exchanger=None`` is the async rules'
+    collective-free local step: the update from this rank's own grads,
+    its own metrics and state."""
     n_subb = int(model.config.get("n_subb", 1) or 1)
     if hasattr(model, "make_custom_step"):
         return _custom_step(model, optimizer, exchanger, seed, n_subb)
+    if exchanger is None:
+        return _local_step(model, optimizer, seed, device, n_subb)
 
     def train_step(params, state, opt_state, batch, lr, step):
         xseed = derive_seed("exchange", seed, step, *tdist.replica_key())
@@ -267,6 +310,24 @@ def make_train_step(model, optimizer, exchanger, seed: int, device):
         return new_params, new_state, new_opt_state, metrics
 
     return train_step
+
+
+def _local_step(model, optimizer, seed: int, device, n_subb: int):
+    """:func:`make_train_step` with no exchanger (the reference's
+    ``make_local_step(stacked=True)``)."""
+    def local_step(params, state, opt_state, batch, lr, step):
+        if n_subb == 1:
+            new_state, metrics, grads = loss_and_grads(
+                model, params, state, batch, _dropout_gen(device, seed, step))
+        else:
+            new_state, metrics, grads = _accumulated_grads(
+                model, params, state, batch, seed, step, device, n_subb)
+        with torch.no_grad():
+            new_params, new_opt_state = optimizer.update(grads, opt_state,
+                                                         params, lr)
+        return new_params, new_state, new_opt_state, metrics
+
+    return local_step
 
 
 def close_feed(batches) -> None:
@@ -337,8 +398,20 @@ class BaseTrainer:
                 verbose=self.recorder.verbose)
 
     # -- rule surface ---------------------------------------------------------
+    def init_opt_state(self):
+        """The optimizer state of ``self.params``."""
+        return self.model.init_opt_state(self.optimizer, self.params)
+
     def init_state(self) -> None:
-        raise NotImplementedError
+        """Fresh fp32 params and model state from a CPU generator seeded
+        ``seed + 1`` (the reference's ``PRNGKey(seed + 1)``; the same
+        values whatever the device, so every rank starts alike) and their
+        optimizer state, on the device."""
+        params, state = self.model.init_params(
+            torch.Generator().manual_seed(self.seed + 1))
+        self.params = tree_to(params, self.device)
+        self.state = tree_to(state, self.device)
+        self.opt_state = self.init_opt_state()
 
     def _maybe_ramp(self, epoch: int) -> None:
         """Epoch-boundary hook, called at the top of each epoch (BSP swaps
@@ -354,6 +427,58 @@ class BaseTrainer:
         self._step_fn = make_train_step(self.model, self.optimizer,
                                         self.exchanger, self.seed,
                                         self.device)
+
+    def post_step(self) -> None:
+        """The rule's periodic exchange, after every step, with
+        ``self.iteration`` already advanced (the async rules)."""
+
+    def warmup_exchange(self) -> None:
+        """Run the rule's periodic exchange once (``post_step`` may not
+        fire it on the first steps)."""
+
+    def eval_args(self) -> tuple:
+        """-> (params, state) that validation evaluates."""
+        return self.params, self.state
+
+    def warmup(self) -> None:
+        """Run every path once (a step, the rule's exchange, a validation
+        batch), then reset to a fresh init: timing harnesses call this so
+        that their window holds no kernel build or first-call cost.  The
+        dataset's state (the token stream's cursors) is put back too."""
+        data = self.model.data
+        start = data.state()
+        gen = self.train_batches(0)
+        try:
+            batch = next(iter(gen))
+        finally:
+            close_feed(gen)
+        self.train_iter(batch, self.model.adjust_hyperp(0))
+        self.warmup_exchange()
+        vb = min(self.global_batch, data.n_val)
+        vb -= vb % self.n_workers  # validate's rule
+        if vb:
+            vgen = data.val_batches(vb, rows=self.rows(vb))
+            try:
+                vbatch = next(iter(vgen), None)
+            finally:
+                close_feed(vgen)
+            if vbatch is not None:
+                self.val_iter(vbatch)
+        data.set_state(start)
+        self.init_state()
+        self.reset_iter()
+
+    def reset_iter(self) -> None:
+        """Zero the iteration and epoch counters and start a fresh
+        recorder with the same settings."""
+        self.iteration = 0
+        self.epoch = 0
+        self._epoch_start_iter = 0
+        self._resume_data_state = None
+        r = self.recorder
+        self.recorder = Recorder(print_freq=r.print_freq,
+                                 save_dir=r.save_dir, verbose=r.verbose,
+                                 reduce=r.reduce)
 
     # -- iteration ------------------------------------------------------------
     def train_iter(self, batch: dict, lr: float):
@@ -371,6 +496,7 @@ class BaseTrainer:
         fence = (metrics["cost"] if self.iteration % r.print_freq == 0
                  else None)
         r.end("calc", fence=fence)
+        self.post_step()
         r.end_iteration()
         r.train_metrics(**metrics)
         r.print_train_info(self.iteration)
@@ -402,12 +528,16 @@ class BaseTrainer:
                         stall_timeout=self.prefetch_stall_timeout,
                         start_batch=start_batch)
 
-    def val_iter(self, batch: dict) -> dict:
-        """The metrics of this rank's share of a validation batch."""
+    def val_iter(self, batch: dict, eval_args=None) -> dict:
+        """The metrics of this rank's share of a validation batch, on
+        ``eval_args`` (None: :meth:`eval_args`, which may be collective:
+        :meth:`validate` takes it once for all its batches)."""
         batch = to_device(batch, self.device)
+        params, state = (eval_args if eval_args is not None
+                         else self.eval_args())
         with torch.no_grad():
-            _, (_, metrics) = self.model.loss_fn(self.params, self.state,
-                                                 batch, None, train=False)
+            _, (_, metrics) = self.model.loss_fn(params, state, batch, None,
+                                                 train=False)
         return metrics
 
     def validate(self, epoch: int) -> dict:
@@ -417,8 +547,9 @@ class BaseTrainer:
         if vb == 0:
             return {}
         accums: dict[str, list] = {}
+        eval_args = self.eval_args()
         for batch in self.model.data.val_batches(vb, rows=self.rows(vb)):
-            for k, v in self.val_iter(batch).items():
+            for k, v in self.val_iter(batch, eval_args).items():
                 accums.setdefault(k, []).append(v)  # one pull after the loop
         # each batch's metrics averaged over the ranks, in one collective
         stacked = fused_pmean({k: torch.stack(v) for k, v in accums.items()})
@@ -722,6 +853,10 @@ class Rule:
     def adjust_model_config(self, model_config: dict, n_workers: int) -> None:
         """Rule-specific model-config defaults (sync-BN for BSP)."""
 
+    def check_config(self) -> None:
+        """Rule-specific refusals of the rule config, before any other
+        (the async rules refuse sharded axes)."""
+
     def make_trainer(self, model, device, recorder) -> BaseTrainer:
         raise NotImplementedError
 
@@ -729,7 +864,10 @@ class Rule:
              modelfile: str = "theanompi_torch.models.transformer_lm",
              modelclass: str = "TransformerLM",
              model_config: dict | None = None, device=None):
-        unported = sorted(k for k in self.config if k in NOT_PORTED_KEYS)
+        self.check_config()
+        unported = sorted(
+            k for k, v in self.config.items() if k in NOT_PORTED_KEYS
+            and not (k in AXIS_KEYS.values() and int(v or 1) == 1))
         if unported:
             raise NotImplementedError(
                 f"rule keys {unported} not yet ported (ROADMAP queue 1: "

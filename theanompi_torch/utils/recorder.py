@@ -34,11 +34,19 @@ def _host_mean(x) -> float:
 
 
 class Recorder:
+    """``reduce``: None, or a function of the print window's per-step
+    metrics (``{name: [value a step]}``) -> ``{name: values}`` that the
+    printed means are taken over (the async rules average their workers'
+    metrics there, one collective a print, as the reference averages its
+    stacked metrics at print time); every rank's recorder calls it at the
+    same print boundaries."""
+
     def __init__(self, print_freq: int = 40, save_dir: str | None = None,
-                 verbose: bool = True):
+                 verbose: bool = True, reduce=None):
         self.print_freq = print_freq
         self.save_dir = save_dir
         self.verbose = verbose
+        self.reduce = reduce
         self._t0: dict[str, float] = {}
         self._iter_times: dict[str, float] = defaultdict(float)
         self.time_history: dict[str, list] = defaultdict(list)
@@ -86,8 +94,11 @@ class Recorder:
         """Every ``print_freq`` iterations: averaged metrics + time split."""
         if count % self.print_freq != 0 or not self._train_accum:
             return
+        accum = self._train_accum
+        if self.reduce is not None:
+            accum = {k: [v] for k, v in self.reduce(accum).items()}
         means = {k: float(np.mean([_host_mean(x) for x in v]))
-                 for k, v in self._train_accum.items()}
+                 for k, v in accum.items()}
         for k, v in means.items():
             self.train_history[k].append(v)
         self.train_history["iter"].append(count)
