@@ -229,12 +229,44 @@ Phases (any failure exits non-zero and prints no result line):
    update and the BN state after 2 steps within phase 5's limits, and the
    peak memory of both.
 
+12. **Tensor and expert parallelism** — ``BSP(config={"n_model": K})
+   .init`` on every rank of a process group (``rank_jobs.tp_run``): dp1 x
+   tp2 on any card count (one card: the two ranks share it over gloo; two
+   or more: NCCL), and with four cards dp2 x tp2 and dp1 x tp4 too.  It
+   prints the backend, the rank-to-card map and the MoE's all-to-all
+   transport.  The transformer at phase 4's config (the fused loss
+   vocab-parallel over the model group) with dropout 0.1 (at one data
+   worker the ranks draw the one process's masks; dp2 runs without), at
+   global batch 16, and the MoE LM at the same widths with 8 experts at
+   global batch 4 (cut: its fp32 expert slabs), at capacity factor 8
+   (nothing drops) and at the default 1.25, each in bf16 and fp32, 4
+   steps.  On every run: the ranks' metrics equal and
+   finite after every step, the replicated params' checksums equal, each
+   rank holding ``heads / K`` heads and launching kernels 1-3 ``8 x 4``
+   times; the MoE's two all-to-alls a block a step.  The transformer and
+   (at one data worker, where the Switch aux is the global batch's) the
+   MoE at capacity factor 8 are held against one process at ``n_model``
+   1 from the same init and batches: the step-1 loss, the
+   exchanged grads' global norm and the update after step 1, within
+   phase 6's limits.  Printed: step ms p50, tokens/s a model group, peak
+   GiB per rank, the collectives a step by name and by kind (``f``,
+   ``g``, the loss's ``vp_*``, the MoE's ``a2a`` and ``aux``, the
+   exchange's all-reduces), the MoE's dropped token share per step; on one
+   card the times come from a card the ranks share with the collectives
+   staged through the host, not speed figures.  Then the launcher at
+   ``--devices 1 --rule-set n_model=2`` (2 layers): two epochs of one
+   step with a checkpoint each, and epoch 0 alone resumed to two epochs,
+   whose loss must be the uninterrupted run's second and whose epoch 1
+   must be the uninterrupted run's bit for bit.  Phase 2 also holds kernels 1-3
+   at the training shape with ``H = 4`` (a tp2 rank's heads).
+
 ``python3 chip_smoke.py --decode`` runs phase 1 and kernels 4 and 5 of
 phase 2 only, and prints no result line; ``--conv`` runs phases 1 and 5
 only, ``--bsp`` phases 1 and 6 only, ``--data`` phases 1 and 7 only,
 ``--ckpt`` phases 1 and 8 only, ``--zoo`` phases 1 and 9 only,
 ``--serve-ckpt`` phases 1 and 10 only and ``--async`` phases 1 and 11
-only, none of them printing a result line.
+only, ``--tp`` phases 1 and 12 only, none of them printing a result
+line.
 
 Output: the ``nvidia-smi`` line, one line per check, the serve reports,
 the training lines, the conv-net lines, the multi-rank lines, the data
@@ -248,7 +280,9 @@ and the multi-rank bf16 transformer runs summed over their ranks,
 phase 10's serving runs from the checkpoint (``serve_ckpt_bf16``,
 ``serve_ckpt_int8``) and the rollout's drive (``serve_rollout_bf16``),
 and phase 11's transformer runs summed over their ranks
-(``train_easgd2_bf16``, ``train_gosgd2_bf16``))
+(``train_easgd2_bf16``, ``train_gosgd2_bf16``), and phase 12's dp1 x tp2
+bf16 runs summed over their ranks (``train_tp2_bf16``, the MoE's
+``train_moe2_bf16``))
 and, last, ``{"ok": true,
 "device": {...}}``.  fp32 products run without TF32 throughout.
 """
@@ -484,13 +518,14 @@ def check_flash(torch):
 
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = [(b, t) for b in (1, 8)
+    cases = [(b, t, 8) for b in (1, 8)
              for t in (16, 128, 256, 512, 1024, 2048)]
     train = (TRAIN_ATTN["b"], TRAIN_ATTN["t"])
-    cases.append(train)
+    # the training shape, and its heads / 2 (phase 12's tp2 ranks)
+    cases += [(*train, TRAIN_ATTN["h"]), (*train, TP_HEADS)]
     # fp32 also at T=8192: the longest chains of sums (out is summed over
     # 128 key tiles into one accumulator at the last rows)
-    long_fp32 = (1, 8192)
+    long_fp32 = (1, 8192, 8)
     worst = {}  # dtype -> (the largest error/limit, the largest |lse-ref|)
     # out, element by element (see within): fp32 sums run in another order
     # than the plain version's (rel = row = 2e-5); a bf16 output may round
@@ -502,8 +537,8 @@ def check_flash(torch):
             (torch.bfloat16, (2 ** -7, 2 ** -5, 4e-3)),
             (torch.float32, (2e-5, 2e-5, 2e-5))):
         fp32 = dtype == torch.float32
-        for b, t in cases + ([long_fp32] if fp32 else []):
-            h, d = 8, 64
+        for b, t, h in cases + ([long_fp32] if fp32 else []):
+            d = 64
             q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=gen)
                        .to(dtype) for _ in range(3))
             out, lse = flash_attention(q, k, v, causal=True)
@@ -521,7 +556,7 @@ def check_flash(torch):
             dn = _dname(dtype)
             worst[dn] = tuple(max(x, y) for x, y in zip(
                 worst.get(dn, (0.0, 0.0)), (ratio, lse_err)))
-            if fp32 and (b, t) == train:
+            if fp32 and (b, t) == train and h == TRAIN_ATTN["h"]:
                 # one CTA owns its rows of out, the key halves merged in a
                 # fixed order
                 again = flash_attention(q, k, v, causal=True)
@@ -712,6 +747,8 @@ BWD_TOL = {"bfloat16": (2 ** -7, 2 ** -5), "float32": (1e-4, 1e-4)}
 DQ_BF16_FLOOR = 1e-5
 #: the training shape of kernels 2 and 3 (bf16, causal, head dim 64)
 TRAIN_ATTN = dict(b=16, t=2048, h=8, d=64)
+#: a tp2 rank's heads at the training shape (phase 12)
+TP_HEADS = TRAIN_ATTN["h"] // 2
 
 
 def _bwd_launchers(torch, q, k, v, out, lse, g, causal):
@@ -763,11 +800,13 @@ def check_flash_bwd(torch):
              for dtype in (torch.bfloat16, torch.float32)
              for causal in (True, False) for b in (1, 2)
              for d in (32, 64, 128) for t in (128, 1040, 1024, 2048)]
-    cases += [(dtype, True, TRAIN_ATTN["b"], TRAIN_ATTN["d"], TRAIN_ATTN["t"])
+    cases = [(*c, 8) for c in cases]
+    # the training shape, and its heads / 2 (phase 12's tp2 ranks)
+    cases += [(dtype, True, TRAIN_ATTN["b"], TRAIN_ATTN["d"], TRAIN_ATTN["t"],
+               h) for h in (TRAIN_ATTN["h"], TP_HEADS)
               for dtype in (torch.bfloat16, torch.float32)]
     worst = {}  # (dtype, "dq" | "dk/dv") -> the largest error/limit
-    for dtype, causal, b, d, t in cases:
-        h = 8
+    for dtype, causal, b, d, t, h in cases:
         dn = _dname(dtype)
         q, k, v, g = (torch.randn(b, t, h, d, device="cuda", generator=gen)
                       .to(dtype) for _ in range(4))
@@ -793,7 +832,7 @@ def check_flash_bwd(torch):
             worst[key] = max(worst.get(key, 0.0), ratio)
         shape = (f"B={b} T={t} H={h} D={d} "
                  f"{'causal' if causal else 'full'}")
-        if dn == "float32" and b == TRAIN_ATTN["b"]:
+        if dn == "float32" and b == TRAIN_ATTN["b"] and h == TRAIN_ATTN["h"]:
             # one CTA owns its rows of dq (of dk and dv), summed in a fixed
             # order
             again = flash_attention_bwd(q, k, v, out, lse, g, causal)
@@ -1409,9 +1448,9 @@ def conv_profile(torch, tr, batch, lr, precision):
         def __init__(self, opt):
             self.opt = opt
 
-        def update(self, *args):
+        def update(self, *args, **kwargs):
             with record_function("optimizer"):
-                return self.opt.update(*args)
+                return self.opt.update(*args, **kwargs)
 
     bn_apply = BatchNorm.apply_stateful
 
@@ -3509,6 +3548,257 @@ def async_phase(torch, smi, kernels):
     return launches_by_path
 
 
+# -- phase 12: tensor and expert parallelism ----------------------------------
+
+TP_STEPS = 4
+#: the transformer at phase 4's config (the fused loss on, vocab-parallel
+#: over the model group), global batch 16, dropout 0.1: at one data worker
+#: the ranks of the model group draw the one process's masks
+TP_TRAIN_CFG = {**TRAIN_CFG, "n_train": TP_STEPS * TRAIN_CFG["batch_size"],
+                "n_val": TRAIN_CFG["batch_size"], "dropout": 0.1}
+#: the MoE LM at the same widths (8 experts), global batch 4 (cut: its
+#: fp32 expert slabs, the reference's dispatch, take 268 MB an all-to-all at
+#: batch 16, 32 a step through the host on one card): at capacity factor 8
+#: nothing can drop, so expert parallelism is exactly the one-process
+#: model; at the default 1.25 tokens drop per rank chunk
+TP_MOE_BATCH = 4
+TP_MOE_CFGS = {"cf8": {**TP_TRAIN_CFG, "capacity_factor": 8.0},
+               "cf1.25": {**TP_TRAIN_CFG, "capacity_factor": 1.25}}
+#: the launcher run: bf16, 2 layers (cut: depth), 1 step an epoch, 2
+#: epochs (the launcher's start, the saves and validation are most of it)
+TP_CKPT_STEPS = 1
+TP_CKPT_CFG = {**TRAIN_CFG, "precision": "bf16", "n_layers": 2,
+               "n_train": TP_CKPT_STEPS * TRAIN_CFG["batch_size"],
+               "n_val": TRAIN_CFG["batch_size"]}
+
+
+def tp_layouts(torch) -> list:
+    """-> the (data, model) layouts phase 12 runs: dp1 x tp2 on any card
+    count; with four cards also dp2 x tp2 and dp1 x tp4."""
+    if torch.cuda.device_count() >= 4:
+        return [(1, 2), (2, 2), (1, 4)]
+    return [(1, 2)]
+
+
+def tp_check_run(torch, tmp, smi, label, name, res, one, tol, kernels):
+    """One phase-12 run on every rank: losses equal and finite after every
+    step, the replicated leaves' checksums equal, kernels 1-3 launched
+    ``8 x TP_STEPS`` times on every rank at ``heads / n_model`` heads, the
+    collectives a step by kind; held against the one-process run (``one``,
+    or None) within ``tol``.  -> the launches summed over the ranks."""
+    import statistics
+
+    n = len(res)
+    r0 = res[0]
+    lay = r0["layout"]
+    check(all(r["metrics"] == r0["metrics"] for r in res),
+          f"tp {name}: the ranks' metrics differ")
+    check(all(x == x and abs(x) != float("inf") for r in res
+              for m in r["metrics"] for x in m.values()),
+          f"tp {name}: a metric is not finite")
+    check(all(r["digests"] == r0["digests"] for r in res),
+          f"tp {name}: the ranks' replicated params differ after a step")
+    heads = TP_TRAIN_CFG["heads"] // lay["n_model"]
+    want = 8 * TP_STEPS
+    for r, got in enumerate(res):
+        check(got["local_heads"] == heads and all(
+            got["launches"][k] == want
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+            f"tp {name}: rank {r} holds {got['local_heads']} heads and "
+            f"launched {got['launches']}, expected {want} of each flash "
+            f"kernel at H={heads}")
+    p50 = statistics.median(r0["step_s"])
+    tokens = r0["global_batch"] * TP_TRAIN_CFG["seq_len"] // lay["n_data"]
+    line = (f"tp {name} {smi}: dp{lay['n_data']} x tp{lay['n_model']}, "
+            f"losses {[m['cost'] for m in r0['metrics']]}"
+            + (f", moe_aux {[round(m['moe_aux'], 6) for m in r0['metrics']]}"
+               if "moe_aux" in r0["metrics"][0] else "")
+            + f"; step_ms p50 {p50 * 1e3:.3f} on {label}; tokens/s a model "
+            f"group {tokens / p50:.1f}; peak GiB per rank "
+            f"{[round(r['peak_bytes'] / 2**30, 2) for r in res]}; "
+            f"collectives a step {r0['per_step'][-1]['calls']}, by kind "
+            f"{r0['per_step'][-1]['kinds']}; kernels 1-3 at H={heads}: "
+            f"{r0['launches']['flash_fwd']} launches each on every rank")
+    shares = [s["dropped_share"] for s in r0["per_step"]]
+    if shares[0] is not None:
+        line += (f"; dropped token share per step (rank 0) "
+                 f"{[round(x, 4) for x in shares]}")
+    if one is not None:
+        mine = torch.load(os.path.join(tmp, f"{name}-r0.pt"))
+        ref = torch.load(os.path.join(tmp, f"{name}-one-r0.pt"))
+        d = [abs(r0["metrics"][0]["cost"] - one["metrics"][0]["cost"])
+             / abs(one["metrics"][0]["cost"]),
+             abs(r0["grad_norm"] - one["grad_norm"]) / one["grad_norm"]]
+        a, b = (_saved_vector(torch, x, "update") for x in (mine, ref))
+        d.append(float((a - b).norm() / b.norm()))
+        line += (f"; step 1 against one process (step_ms p50 "
+                 f"{statistics.median(one['step_s']) * 1e3:.3f}): loss rel "
+                 f"{d[0]:.3g} (tol {tol[0]:g}), grad norm rel {d[1]:.3g} "
+                 f"(tol {tol[1]:g}), update rel {d[2]:.3g} (tol {tol[2]:g})")
+        check(all(x <= t for x, t in zip(d, tol)), f"tp {name}: step 1 "
+              f"differs from the one-process step: {d}")
+    print(line, flush=True)
+    return {k.name: sum(r["launches"][k.name] for r in res)
+            for k in kernels}
+
+
+def tp_launch(argv, what):
+    """The launcher's ``main(argv)`` in this process (its ranks are
+    spawned); -> what it printed.  Fails unless it exits 0."""
+    import contextlib
+    import io
+
+    from theanompi_torch.launcher import main as launch
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = launch(argv)
+    print(f"tp launcher {what}: exit {code} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(code == 0, f"tp launcher {what}: exit {code}, expected 0")
+    return out.getvalue()
+
+
+def tp_launcher(torch, smi, tmp, n_model):
+    """The launcher at ``--devices 1 --rule-set n_model=K``: 2 epochs with
+    a checkpoint each (A), then epoch 0 alone resumed to 2 epochs (B): B's
+    first loss equals A's first of epoch 1, and B's epoch 1 is A's bit for
+    bit."""
+    import numpy as np
+
+    base = ["--modelfile", "theanompi_torch.models.transformer_lm",
+            "--modelclass", "TransformerLM", "--devices", "1",
+            "--rule-set", f"n_model={n_model}", "--rule-set", "print_freq=1"]
+    base += [a for k, v in {**TP_CKPT_CFG, "n_epochs": 2}.items()
+             for a in ("--set", f"{k}={v!r}")]
+    A, B = os.path.join(tmp, "tp-A"), os.path.join(tmp, "tp-B")
+    out = tp_launch(base + ["--checkpoint-dir", A], f"tp{n_model} A")
+    os.makedirs(B)
+    _copy_epoch(A, B, 0)
+    tp_launch(base + ["--checkpoint-dir", B, "--resume"],
+              f"tp{n_model} B (--resume of A's epoch 0)")
+    ca = np.load(os.path.join(A, "train_history.npy"),
+                 allow_pickle=True).item()["cost"].tolist()
+    cb = np.load(os.path.join(B, "train_history.npy"),
+                 allow_pickle=True).item()["cost"].tolist()
+    print(f"tp launcher {smi}: {out.splitlines()[0]}; A's losses {ca}, "
+          f"B's (resumed at epoch 1) {cb}", flush=True)
+    check(len(ca) == 2 * TP_CKPT_STEPS and cb
+          and cb[0] == ca[TP_CKPT_STEPS], f"tp launcher: the resumed run's "
+          f"first loss {cb[:1]} is not the uninterrupted run's "
+          f"{ca[TP_CKPT_STEPS:TP_CKPT_STEPS + 1]}")
+    ckpt_same(B, A, f"tp{n_model} launcher")
+
+
+def tp_phase(torch, smi, kernels):
+    """Phase 12: the transformer and the MoE LM at dp x tp on ranks of a
+    process group, each against one process at ``n_model`` 1; the
+    launcher at ``n_model`` 2 with a checkpoint and its resume.  -> the
+    dp1 x tp2 bf16 runs' launches over the ranks (``train_tp2_bf16``,
+    ``train_moe2_bf16``)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from theanompi_torch import dist as tdist
+    from theanompi_torch.models.transformer_lm import TransformerLM
+    from theanompi_torch.parallel.rank_jobs import run_all, tp_run
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tp-")
+    model = TransformerLM(dict(TP_TRAIN_CFG))
+    gb = TP_TRAIN_CFG["batch_size"]
+    batches = list(model.data.train_batches(gb, 0, seed=0))[:TP_STEPS]
+    model.cleanup()
+    bpath = os.path.join(tmp, "batches.npz")
+    np.savez(bpath, **{k: np.stack([b[k] for b in batches])
+                       for k in batches[0]})
+    runs = [("transformer", "TransformerLM", TP_TRAIN_CFG, p)
+            for p in ("bf16", "fp32")]
+    runs += [(f"moe-{tag}", "MoETransformerLM", cfg, p)
+             for tag, cfg in TP_MOE_CFGS.items() for p in ("bf16", "fp32")]
+
+    def job(mclass, cfg, precision, workers, n_model, out, dropout):
+        batch = TP_MOE_BATCH if mclass == "MoETransformerLM" else gb
+        return {"modelfile": "theanompi_torch.models.transformer_lm",
+                "modelclass": mclass,
+                "model_config": {**cfg, "precision": precision,
+                                 "batch_size": batch // workers,
+                                 "dropout": dropout},
+                "rule_config": {"n_model": n_model, "seed": 0,
+                                "verbose": False},
+                "steps": TP_STEPS, "batches": bpath,
+                "out": os.path.join(tmp, out),
+                "save": ["params0", "params1"] if out else [],
+                "save_ranks": [0], "allow_tf32": False}
+
+    tol = {p: BSP_TOL["transformer", p] for p in ("bf16", "fp32")}
+    launches_by_path = {}
+    for n_data, n_model in tp_layouts(torch):
+        ranks = n_data * n_model
+        backend, device = tdist.group_layout(ranks)
+        cards = [str(tdist.rank_device(device, r)) for r in range(ranks)]
+        label = ("a card shared by the ranks, collectives staged through "
+                 "the host (gloo): not a speed figure" if backend == "gloo"
+                 else "one card a rank (NCCL)")
+        print(f"tp: dp{n_data} x tp{n_model}, {ranks} ranks, backend "
+              f"{backend}, rank -> card {dict(enumerate(cards))}",
+              flush=True)
+        # one data worker draws the one process's dropout masks; more
+        # draw their own, so they run without dropout
+        drop = TP_TRAIN_CFG["dropout"] if n_data == 1 else 0.0
+        # held against one process: the transformer, and the MoE where
+        # nothing drops at one data worker (the Switch aux of two data
+        # workers is each one's own f and P, not the global batch's)
+        held = [r for r in runs if r[0] == "transformer"
+                or (r[0] == "moe-cf8" and n_data == 1)]
+        ones = {}
+        for what, mclass, cfg, p in held:
+            # the one-process runs first: their memory goes back to the
+            # card before the ranks start
+            name = f"{what}-{p}-{n_data}x{n_model}"
+            ones[what, p] = tp_run(cards[0], job(mclass, cfg, p, 1, 1,
+                                                 name + "-one", drop))
+            gc.collect()
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = tdist.spawn(run_all, ranks, backend, device, ([
+            ("tp_run", (job(mclass, cfg, p, n_data, n_model,
+                            f"{what}-{p}-{n_data}x{n_model}"
+                            if (what, mclass, cfg, p) in held else "",
+                            drop),))
+            for what, mclass, cfg, p in runs],), timeout_s=900)
+        print(f"tp: dp{n_data} x tp{n_model}: the ranks' jobs took "
+              f"{time.perf_counter() - t0:.1f} s; the MoE's all-to-all "
+              f"transport {res[0][2]['a2a_transport']}", flush=True)
+        for i, (what, _, _, p) in enumerate(runs):
+            name = f"{what}-{p}-{n_data}x{n_model}"
+            per_rank = [r[i] for r in res]
+            got = tp_check_run(torch, tmp, smi, label, name, per_rank,
+                               ones.get((what, p)), tol[p], kernels)
+            if what.startswith("moe"):
+                fwd = [s["kinds"].get("a2a", 0)
+                       for s in per_rank[0]["per_step"]]
+                check(fwd == [2 * TP_TRAIN_CFG["n_layers"]] * TP_STEPS,
+                      f"tp {name}: all-to-alls forward a step {fwd}, "
+                      f"expected two a block")
+            if (n_data, n_model) == (1, 2) and p == "bf16" \
+                    and what in ("transformer", "moe-cf8"):
+                path = ("train_tp2_bf16" if what == "transformer"
+                        else "train_moe2_bf16")
+                launches_by_path[path] = got
+        gc.collect()
+        torch.cuda.empty_cache()
+    tp_launcher(torch, smi, tmp, 2)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"tp: phase 12 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches_by_path
+
+
 def main() -> int:
     import torch
 
@@ -3584,6 +3874,10 @@ def main() -> int:
         # development run: phase 11 only, no result line
         async_phase(torch, smi, K.KERNELS)
         return 0
+    if "--tp" in sys.argv[1:]:
+        # development run: phase 12 only, no result line
+        tp_phase(torch, smi, K.KERNELS)
+        return 0
     if "--decode" in sys.argv[1:]:
         # development run: kernels 4 and 5 only, no result line
         checks = {"paged_decode": check_paged(torch),
@@ -3592,6 +3886,14 @@ def main() -> int:
             print_rows(k, rows)
         decode_step_ms(checks)
         return 0
+    clock = [time.perf_counter()]
+
+    def phase_done(n):
+        # each phase's seconds: where a cut in depth would pay
+        now = time.perf_counter()
+        print(f"phase {n}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
     checks = {"flash_fwd": check_flash(torch),
               "paged_decode": check_paged(torch),
               "int8_matmul": check_int8(torch)}
@@ -3600,6 +3902,7 @@ def main() -> int:
         print_rows(k, rows)
     decode_step_ms(checks)
     check_flash_autograd(torch)
+    phase_done(2)
 
     # -- phase 3 -----------------------------------------------------------
     runs = {}
@@ -3615,6 +3918,7 @@ def main() -> int:
     print(f"launches per served token (bf16, {served} tokens): "
           + ", ".join(f"{k}={v / served:.3f}"
                       for k, v in main_launches.items()), flush=True)
+    phase_done(3)
 
     # -- phase 4 -----------------------------------------------------------
     trains = {p: train_run(torch, p, smi, K.KERNELS)
@@ -3627,20 +3931,31 @@ def main() -> int:
           + ", ".join(f"{k}={train_launches[k] / TRAIN_STEPS:g}"
                       for k in ("flash_fwd", "flash_bwd_dq",
                                 "flash_bwd_dkv")), flush=True)
+    phase_done(4)
     # -- phase 5 -----------------------------------------------------------
     conv_phase(torch, smi, K.KERNELS)
+    phase_done(5)
     # -- phase 6 -----------------------------------------------------------
     bsp_launches = bsp_phase(torch, smi, K.KERNELS)
+    phase_done(6)
     # -- phase 7 -----------------------------------------------------------
     stream_launches = data_phase(torch, smi, K.KERNELS)
+    phase_done(7)
     # -- phase 8 -----------------------------------------------------------
     resume_launches = ckpt_phase(torch, smi)
+    phase_done(8)
     # -- phase 9 -----------------------------------------------------------
     zoo_launches = zoo_phase(torch, smi, K.KERNELS)
+    phase_done(9)
     # -- phase 10 ----------------------------------------------------------
     ckpt_serve_launches = serve_ckpt_phase(torch, smi, K.KERNELS)
+    phase_done(10)
     # -- phase 11 ----------------------------------------------------------
     async_launches = async_phase(torch, smi, K.KERNELS)
+    phase_done(11)
+    # -- phase 12 ----------------------------------------------------------
+    tp_launches = tp_phase(torch, smi, K.KERNELS)
+    phase_done(12)
 
     # the serving slice's kernels report their serve run; the flash
     # kernels the training run, which launches all three
@@ -3657,6 +3972,8 @@ def main() -> int:
                            in ckpt_serve_launches.items()},
                         **{path: got[k.name] for path, got
                            in async_launches.items()},
+                        **{path: got[k.name] for path, got
+                           in tp_launches.items()},
                         **{path: got[k.name]
                            for path, got in bsp_launches.items()}}
                for k in K.KERNELS}

@@ -17,7 +17,8 @@ and the same batch:
 
 and: ``n_subb=2`` against the reference's ``n_subb=2``; the space-to-depth
 stem equals ``conv7`` on the same weights; the full-depth param count;
-the converters' round trip; the launcher's ``--device cpu`` run.
+the converters' round trip (and the MoE LM's tree's); the launcher's
+``--device cpu`` run.
 
 Tolerance: rtol 1e-5 / atol 1e-6 in fp32 unless a reason is written.
 """
@@ -279,8 +280,31 @@ def test_convert_round_trip(name):
                                     tree_leaves_with_path(ref)):
             assert pa == pb
             np.testing.assert_array_equal(a, b)
+    # the MoE LM's tree (its blocks' stacked experts and moe/aux state)
+    # round-trips too; a key no port layer carries still raises
+    from theanompi_tpu.models.transformer_lm import MoETransformerLM as JaxMoE
+
+    from theanompi_torch.models.transformer_lm import MoETransformerLM
+
+    moe = {"seq_len": 8, "vocab": 16, "dim": 8, "heads": 2, "n_layers": 1,
+           "n_experts": 4}
+    jp, js = _np(JaxMoE(dict(moe)).init_params(jax.random.PRNGKey(0)))
+    tp, ts = params_from_jax(jp), state_from_jax(js)
+    mine_p, mine_s = MoETransformerLM(dict(moe)).init_params(
+        torch.Generator())
+    assert {"/".join(p): tuple(x.shape)
+            for p, x in tree_leaves_with_path(mine_p)} == {
+        "/".join(p): tuple(x.shape) for p, x in tree_leaves_with_path(tp)}
+    assert [p for p, _ in tree_leaves_with_path(mine_s)] == [
+        p for p, _ in tree_leaves_with_path(ts)] == [
+        ("02__moeblock", "moe", "aux")]
+    for back, ref in ((params_to_jax(tp), jp), (state_to_jax(ts), js)):
+        for (pa, a), (pb, b) in zip(tree_leaves_with_path(back),
+                                    tree_leaves_with_path(ref)):
+            assert pa == pb
+            np.testing.assert_array_equal(a, b)
     with pytest.raises(KeyError, match="no port layer"):
-        params_from_jax({"00_moeffn": {}})
+        params_from_jax({"00_nosuchlayer": {}})
 
 
 def test_launcher_trains_tiny_resnet50_on_cpu_only_when_asked(

@@ -7,8 +7,11 @@ default.
   prefetcher, the loader pool and the token stream, the checkpoints and
   the exit codes and event log, the fault plan, the serving lifecycle
   files and the live rollout, the async rules and the rule-comparison
-  and convergence harnesses) and ``chip_smoke.py`` (as a module), and
-  runs the checkpoint scrubber (``--verify``) on an empty directory,
+  and convergence harnesses, tensor parallelism and the MoE) and
+  ``chip_smoke.py`` (as a module), trains a tiny ``TransformerLM`` through
+  the launcher at ``--rule-set n_model=2`` (two spawned gloo ranks, the
+  vocab-parallel loss), and runs the checkpoint scrubber (``--verify``)
+  on an empty directory,
   without ``jax`` or ``theanompi_tpu`` ever entering ``sys.modules``
   (the spawned ranks' own modules are checked by
   ``test_torch_exchanger.py`` and ``test_torch_bsp_multirank.py``);
@@ -78,7 +81,18 @@ def test_import_wall_in_a_fresh_interpreter():
         "import theanompi_torch.parallel.gosgd\n"
         "import theanompi_torch.utils.rulecomp\n"
         "import theanompi_torch.utils.converge\n"
+        "import theanompi_torch.parallel.tensor\n"
+        "import theanompi_torch.ops.moe\n"
         "from theanompi_torch import EASGD, LocalSGD, GOSGD\n"
+        "from theanompi_torch.launcher import main as launch\n"
+        "assert launch(['--device', 'cpu', '--devices', '1', '--quiet',\n"
+        "               '--rule-set', 'n_model=2', '--set', 'dim=16',\n"
+        "               '--set', 'heads=2', '--set', 'n_layers=1',\n"
+        "               '--set', 'seq_len=8', '--set', 'vocab=32',\n"
+        "               '--set', 'n_train=8', '--set', 'n_val=4',\n"
+        "               '--set', 'batch_size=4', '--set', 'n_epochs=1',\n"
+        "               '--set', 'precision=\"fp32\"',\n"
+        "               '--set', 'fused_loss=True']) == 0\n"
         "import tempfile\n"
         "from theanompi_torch.utils.checkpoint import main as scrub\n"
         "assert scrub(['--verify', tempfile.mkdtemp()]) == 0\n"

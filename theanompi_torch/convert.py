@@ -6,7 +6,10 @@ The reference's trees (nested dicts of arrays, handed over as numpy) map
 
 - ``TransformerLM``: ``00_embedding``, ``01_positionembedding``,
   ``NN__block/{ln1, attn/{q,k,v,o}, ln2, up, down}``, the final
-  ``NN_layernorm`` and ``head``;
+  ``NN_layernorm`` and ``head``; ``MoETransformerLM`` the same with
+  ``NN__moeblock/{ln1, attn, ln2, moe/{gate/w, up_w, up_b, down_w,
+  down_b}}`` (the experts stacked on dim 0, as they are) and the state
+  ``NN__moeblock/moe/aux``;
 - the conv nets: ``00_conv2d`` or ``00__spacetodepthstem``,
   ``NN_batchnorm``, ``NN__wrnblock/...``, ``NN__bottleneck/...``,
   ``NN__inception/b0..b3/...`` and ``NN_dense``, GoogLeNet with aux heads
@@ -60,8 +63,8 @@ from theanompi_torch.tree import tree_map
 from theanompi_torch.utils.checkpoint import flat_leaves, restore_into
 
 _TOP_KEY = re.compile(
-    r"^(\d{2}_(embedding|positionembedding|_block|layernorm|conv2d|"
-    r"batchnorm|_wrnblock|_bottleneck|_spacetodepthstem|dense|lstm|"
+    r"^(\d{2}_(embedding|positionembedding|_block|_moeblock|layernorm|"
+    r"conv2d|batchnorm|_wrnblock|_bottleneck|_spacetodepthstem|dense|lstm|"
     r"_inception|convtranspose2d)|head|seg\d|aux\d|gen|disc)$")
 #: the GAN's two networks, each with an optimizer state of its own
 _GAN_NETS = ("gen", "disc")

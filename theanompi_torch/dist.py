@@ -16,11 +16,12 @@ card, joined in the default process group; this module is their setup:
   another.
 - :func:`rank`, :func:`world`, :func:`local_rank`: 0, 1 and 0 when no
   group is initialised, so every single-process caller is unchanged.
-- :func:`replica_key`: the parts a per-rank random stream appends to its
-  seed (none at a world of 1, where a stream stays the one-process one).
 - :func:`all_reduce_sum`: a summing all-reduce that autograd runs through
   (its backward sums the cotangents over the group, the transpose of the
   reference's ``psum`` inside ``shard_map``), for sync-BN.
+
+The sub-groups of a sharded mesh (the ``data`` and ``model`` axes) and
+the per-replica random streams are :mod:`theanompi_torch.parallel.mesh`'s.
 - :func:`spawn`: N local ranks on a TCP store at 127.0.0.1 on a free port
   (the test suite's N-rank "mesh" is N gloo ranks on the CPU).
 """
@@ -62,13 +63,6 @@ def local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", dist.get_rank()))
 
 
-def replica_key() -> tuple:
-    """Parts to append to a random stream's seed so that each rank draws
-    its own (the reference's fold of the replica index); empty at a world
-    of 1."""
-    return () if world() == 1 else ("rank", rank())
-
-
 def init(backend: str) -> None:
     """Join the default process group from the environment (``RANK``,
     ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; ``LOCAL_RANK``
@@ -103,22 +97,23 @@ def teardown() -> None:
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         out = grad.clone()
-        dist.all_reduce(out)
-        return out
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the group, differentiable: the cotangent is
-    summed over the group too."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` (None: the default group),
+    differentiable: the cotangent is summed over the group too."""
+    return _AllReduceSum.apply(x, group)
 
 
 def rank_device(device, local: int) -> torch.device:

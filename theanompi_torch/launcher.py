@@ -32,7 +32,11 @@ each: on the cards one card a rank under NCCL, on ``--device cpu`` gloo
 ranks on the host.  ``all`` is every visible card (1 on the CPU).  Rank
 0's exit code and final validation line are the run's.  Started by
 ``torchrun`` instead (``WORLD_SIZE`` set), each process joins the group
-as one rank.
+as one rank.  ``--rule-set n_model=K`` (BSP; tensor and expert
+parallelism) makes each of the N workers a model group of K ranks, so
+``N x K`` ranks run: one card a rank under NCCL where the cards suffice,
+else gloo ranks taking the cards in turn (``dist.group_layout``; NCCL
+refuses two ranks on one card), which the launcher prints.
 
 Exit codes (the reference's contract, :mod:`theanompi_torch.resilience.
 codes`): 0 clean, 70 crash (environment, training, or a checkpoint that
@@ -230,6 +234,15 @@ def worker_count(args, on_cpu: bool) -> int:
     return n
 
 
+def model_ranks(rule_config: dict) -> int:
+    """The rule key ``n_model`` (1 when absent); raises
+    :class:`ConfigError` where it is not a positive integer."""
+    k = rule_config.get("n_model", 1)
+    if not isinstance(k, int) or isinstance(k, bool) or k < 1:
+        raise ConfigError(f"n_model={k!r}: a positive integer")
+    return k
+
+
 def run_rank(device, job: dict) -> tuple[int, dict | None]:
     """One rank of a launcher run (every rank calls it; ``job["rule"]``
     names the rule, BSP when absent): -> (exit code,
@@ -250,7 +263,8 @@ def run_rank(device, job: dict) -> tuple[int, dict | None]:
     rule_cls = getattr(theanompi_torch, job.get("rule", "BSP"))
     code, rule = 0, rule_cls(config=job["rule_config"])
     try:
-        rule.init(devices=tdist.world(), modelfile=job["modelfile"],
+        # every rank of the group: the data workers, times n_model
+        rule.init(devices=None, modelfile=job["modelfile"],
                   modelclass=job["modelclass"],
                   model_config=job["model_config"], device=device)
     except CheckpointCorruptError as e:
@@ -298,18 +312,26 @@ def main(argv: list[str] | None = None) -> int:
     try:
         model_config, rule_config = build_configs(args)
         n = worker_count(args, on_cpu)
+        k = model_ranks(rule_config)
     except ConfigError as e:
         print(f"tmlauncher: error: config: {e}", file=sys.stderr, flush=True)
         return EXIT_CONFIG
     job = {"model_config": model_config, "rule_config": rule_config,
            "modelfile": args.modelfile, "modelclass": args.modelclass,
            "rule": args.rule}
-    backend = "gloo" if on_cpu else "nccl"
+    ranks = n * k
+    backend, device = ("gloo", "cpu") if on_cpu else \
+        tdist.group_layout(ranks, args.device)
+    if k > 1 and not args.quiet:
+        cards = sorted({str(tdist.rank_device(device, r))
+                        for r in range(ranks)})
+        print(f"tmlauncher: {ranks} ranks ({n} data x {k} model), backend "
+              f"{backend}, devices {cards}", flush=True)
 
     try:
-        if n > 1:
-            code, val = tdist.spawn(run_rank, n, backend,
-                                    args.device or "cuda", (job,))[0]
+        if ranks > 1:
+            code, val = tdist.spawn(run_rank, ranks, backend, device,
+                                    (job,))[0]
         elif int(os.environ.get("WORLD_SIZE", "1")) > 1:
             # started by torchrun: this process is one rank
             tdist.init(backend)

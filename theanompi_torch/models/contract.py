@@ -26,6 +26,7 @@ import torch
 from theanompi_torch.ops.losses import softmax_cross_entropy, top_k_error
 from theanompi_torch.ops.opt import SGD, global_sq_norm
 from theanompi_torch.parallel.mesh import BF16, FP32, Precision
+from theanompi_torch.tree import tree_map
 
 
 class Model:
@@ -63,6 +64,12 @@ class Model:
     def init_opt_state(self, optimizer, params):
         """Optimizer-state layout (the GAN splits it per network)."""
         return optimizer.init(params)
+
+    def param_specs(self, params) -> dict:
+        """Each param leaf's dim cut over the model group, None where it is
+        replicated: none is cut here (the tensor-parallel models override
+        it; the reference's ``param_specs``)."""
+        return tree_map(lambda _: None, params)
 
     # -- what the trainer runs ----------------------------------------------
     def init_params(self, gen):

@@ -34,7 +34,6 @@ import math
 
 import torch
 
-from theanompi_torch import dist as tdist
 from theanompi_torch.models.contract import Model
 from theanompi_torch.models.data.base import derive_seed
 from theanompi_torch.models.data.cifar10 import Cifar10Data
@@ -42,6 +41,7 @@ from theanompi_torch.ops import layers as L
 from theanompi_torch.ops.initializers import normal
 from theanompi_torch.ops.losses import sigmoid_binary_cross_entropy
 from theanompi_torch.ops.opt import Adam, RMSProp
+from theanompi_torch.parallel.mesh import replica_key
 from theanompi_torch.parallel.trainer import value_and_grads
 from theanompi_torch.tree import tree_map
 
@@ -268,7 +268,7 @@ class DCGAN(Model):
         grads exchanged by ``exchanger`` (tags 0 and 1 in the seed of its
         stochastic rounding)."""
         def inner(params, state, opt_state, batch, lr, step):
-            key = (seed, step, *tdist.replica_key())
+            key = (seed, step, *replica_key())
             real = self.prepare_x(batch["x"])
             b, dev = real.shape[0], real.device
             z1 = self.draw_z(b, dev, derive_seed("gan_z", *key, 1))

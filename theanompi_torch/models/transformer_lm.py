@@ -21,7 +21,19 @@ Serving: ``apply_logits`` (full forward, the batched reference),
 ``apply_prefill_partial`` (an uncached suffix over a cached prefix) and
 ``apply_decode`` (one token for every slot of a fixed batch).  The K/V
 writes go into the cache's pools in place; each method returns the same
-cache object.  The MoE and pipeline variants come with later slices.
+cache object.
+
+Tensor and expert parallelism (a bound layout with a model group,
+:mod:`theanompi_torch.parallel.mesh`): a rank holds its shards of the
+params (:meth:`TransformerLM.param_specs`, the reference's
+``specs_from_rules(TP_RULES)`` with the head vocab-parallel when the
+fused loss is on), the blocks' q/k/v and ``up`` are column-parallel, o
+and ``down`` row-parallel, and the loss is
+:func:`~theanompi_torch.ops.losses.fused_lm_xent_vp`.
+:class:`MoETransformerLM` swaps each block's MLP for the switch-routed
+:class:`~theanompi_torch.ops.moe.MoEFFN`, whose stacked experts are cut
+over the same group, and adds the blocks' mean load-balance loss at
+``moe_aux_weight``.  The pipeline variant comes with a later slice.
 """
 
 from __future__ import annotations
@@ -46,10 +58,18 @@ from theanompi_torch.ops.layers import (
 )
 from theanompi_torch.ops.losses import (
     fused_lm_xent,
+    fused_lm_xent_vp,
     softmax_cross_entropy,
     top_k_error,
 )
+from theanompi_torch.ops.moe import MoEFFN
 from theanompi_torch.ops.opt import global_sq_norm
+from theanompi_torch.parallel import mesh
+from theanompi_torch.parallel.tensor import (
+    ColumnParallelDense,
+    RowParallelDense,
+    specs_from_rules,
+)
 
 
 def _streamed(cfg) -> bool:
@@ -61,51 +81,68 @@ def _streamed(cfg) -> bool:
 class _Block(Layer):
     """Pre-norm transformer block: LN -> MHA -> dropout -> residual, LN ->
     MLP -> dropout -> residual (tanh-approximate GELU, the reference's
-    ``jax.nn.gelu``; dropout only in training)."""
+    ``jax.nn.gelu``; dropout only in training).  ``up`` is column-parallel
+    and ``down`` row-parallel (the reference's :51-56).  The MLP half is a
+    hook (``_ffn_subs`` / ``_ffn``) that :class:`_MoEBlock` overrides."""
+
+    #: the MLP half's sub-layers, chained in ``init_stateful``
+    FFN_KEYS = ("up", "down")
 
     def __init__(self, dim: int, heads: int, dropout: float = 0.0,
                  attn_impl: str = "auto"):
         super().__init__()
+        self.dim = dim
         self.drop = Dropout(dropout)
-        w02 = init_lib.normal(0.02)
         self.subs = nn.ModuleDict({
             "ln1": LayerNorm(),
             "attn": MultiHeadAttention(dim, heads, causal=True,
                                        impl=attn_impl),
             "ln2": LayerNorm(),
-            "up": Dense(4 * dim, w_init=w02),
-            "down": Dense(dim, w_init=w02),
+            **self._ffn_subs(),
         })
 
-    def init(self, gen, in_shape):
-        params, shape = {}, tuple(in_shape)
+    def _ffn_subs(self) -> dict:
+        w02 = init_lib.normal(0.02)
+        return {"up": ColumnParallelDense(4 * self.dim, w_init=w02),
+                "down": RowParallelDense(self.dim, w_init=w02)}
+
+    def init_stateful(self, gen, in_shape):
+        params, state, shape = {}, {}, tuple(in_shape)
         for name, layer in self.subs.items():
-            p, out = layer.init(gen, shape if name in ("up", "down")
-                                else in_shape)
-            if name in ("up", "down"):
-                shape = out
+            ffn = name in self.FFN_KEYS
+            p, s, out = layer.init_stateful(gen, shape if ffn else in_shape)
+            if ffn:
+                shape = out  # chained through the MLP half only
             if p:
                 params[name] = p
-        return params, tuple(in_shape)
+            if s:
+                state[name] = s
+        return params, state, tuple(in_shape)
 
-    def _ffn(self, params, h):
+    def _ffn(self, params, state, h, train: bool = False):
+        """The MLP half -> (h, its new state: none)."""
         h = self.subs["up"](params["up"], h)
         h = F.gelu(h, approximate="tanh")
-        return self.subs["down"](params["down"], h)
+        return self.subs["down"](params["down"], h), {}
 
     def _finish(self, params, x, ctx):
         """Output projection, residual, and the MLP half."""
         s = self.subs
         x = x + s["attn"].project_out(
             params["attn"], ctx.reshape(x.shape[0], x.shape[1], -1))
-        return x + self._ffn(params, s["ln2"](params["ln2"], x))
+        return x + self._ffn(params, {}, s["ln2"](params["ln2"], x))[0]
 
-    def forward(self, params, x, train: bool = False, gen=None):
+    def apply_stateful(self, params, state, x, train: bool = False,
+                       gen=None):
         s = self.subs
         h = s["attn"](params["attn"], s["ln1"](params["ln1"], x))
         x = x + self.drop(None, h, train, gen)
-        h = self._ffn(params, s["ln2"](params["ln2"], x))
-        return x + self.drop(None, h, train, gen)
+        h, new_state = self._ffn(params, state,
+                                 s["ln2"](params["ln2"], x), train)
+        return x + self.drop(None, h, train, gen), new_state
+
+    def forward(self, params, x, train: bool = False, gen=None):
+        return self.apply_stateful(params, {}, x, train, gen)[0]
 
     def prefill_step(self, params, x, cache, layer_idx, table_row):
         """Full-prompt forward of one block: writes this layer's K/V into
@@ -141,6 +178,30 @@ class _Block(Layer):
         cache.write_decode(layer_idx, k[:, 0], v[:, 0], positions)
         return self._finish(params, x,
                             cache.attend_decode(layer_idx, q[:, 0], positions))
+
+
+class _MoEBlock(_Block):
+    """:class:`_Block` with the switch-routed :class:`MoEFFN` as its MLP
+    half, under ``moe``; its load-balance loss rides in the block's state
+    under ``moe/aux`` (the reference's :171-188)."""
+
+    FFN_KEYS = ("moe",)
+
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0,
+                 attn_impl: str = "auto", n_experts: int = 8,
+                 capacity_factor: float = 1.25):
+        self.n_experts = n_experts
+        self.capacity_factor = capacity_factor
+        super().__init__(dim, heads, dropout=dropout, attn_impl=attn_impl)
+
+    def _ffn_subs(self) -> dict:
+        return {"moe": MoEFFN(self.dim, self.n_experts,
+                              capacity_factor=self.capacity_factor)}
+
+    def _ffn(self, params, state, h, train: bool = False):
+        h, moe_state = self.subs["moe"].apply_stateful(
+            params["moe"], state.get("moe", {}), h, train)
+        return h, {"moe": moe_state}
 
 
 class TransformerLM(Model):
@@ -197,13 +258,17 @@ class TransformerLM(Model):
             PositionEmbedding(cfg["seq_len"], cfg["dim"]),
         ]
         for _ in range(cfg["n_layers"]):
-            layers.append(_Block(cfg["dim"], cfg["heads"],
-                                 dropout=cfg["dropout"],
-                                 attn_impl=cfg["attn_impl"]))
+            layers.append(self._make_block())
         layers.append(LayerNorm())
         self.layers = [(f"{i:02d}_{layer.name}", layer)
                        for i, layer in enumerate(layers)]
         self.head = Dense(self.vocab, w_init=init_lib.glorot_normal)
+
+    def _make_block(self) -> _Block:
+        """The block factory (:class:`MoETransformerLM` swaps the MLP)."""
+        cfg = self.config
+        return _Block(cfg["dim"], cfg["heads"], dropout=cfg["dropout"],
+                      attn_impl=cfg["attn_impl"])
 
     def build_data(self):
         cfg = self.config
@@ -228,15 +293,29 @@ class TransformerLM(Model):
 
     def init_params(self, gen: torch.Generator):
         """-> (fp32 param tree in the reference's layout on ``gen``'s
-        device, the empty state: the model keeps no running buffers)."""
+        device, the state: empty for the dense model, the MoE blocks'
+        ``moe/aux``)."""
         shape = (self.config["seq_len"],)
-        params = {}
+        params, state = {}, {}
         for name, layer in self.layers:
-            p, shape = layer.init(gen, shape)
+            p, s, shape = layer.init_stateful(gen, shape)
             if p:
                 params[name] = p
+            if s:
+                state[name] = s
         params["head"], _ = self.head.init(gen, shape)
-        return params, {}
+        return params, state
+
+    def param_specs(self, params) -> dict:
+        """Each param leaf's dim cut over the model group (None:
+        replicated): the reference's ``TP_RULES``, and the head
+        vocab-parallel, ``w`` on dim 1 and ``b`` on dim 0, whenever the
+        fused loss is on (its ``_head_specs``, :408-421)."""
+        specs = specs_from_rules(params)
+        vp = self.fused_loss_enabled()
+        specs["head"] = {k: (({"w": 1, "b": 0}[k]) if vp else None)
+                         for k in params["head"]}
+        return specs
 
     def _head_logits(self, cp, h):
         y = quant.matmul_any(h, cp["head"]["w"])
@@ -310,26 +389,40 @@ class TransformerLM(Model):
         return self._head_logits(cp, x[:, 0, :]), kv_cache
 
     # -- training -------------------------------------------------------------
-    def apply_trunk(self, cp, tokens, train: bool = False, gen=None):
+    def apply_trunk(self, cp, state, tokens, train: bool = False,
+                    gen=None):
         """The trunk over compute-cast params ``cp``: embedding, positions,
         the blocks (dropout from ``gen`` when ``train``) and the final LN
-        -> hidden states ``[B, T, D]``.  The head stays outside, so the
-        loss can fuse it."""
+        -> (hidden states ``[B, T, D]``, the blocks' new state).  The head
+        stays outside, so the loss can fuse it."""
+        new_state = dict(state)
+
+        def block(blk, p, h, li):
+            name = self.layers[li + 2][0]
+            h, s = blk.apply_stateful(p, state.get(name, {}), h, train, gen)
+            if s:
+                new_state[name] = s
+            return h
+
         x = self.layers[1][1](cp[self.layers[1][0]], self._embed(cp, tokens))
-        return self._run(cp, x, lambda blk, p, h, li: blk(p, h, train, gen))
+        return self._run(cp, x, block), new_state
 
     def loss_fn(self, params, state, batch, gen, train: bool):
-        """-> (loss, (state, metrics ``cost/error/error_top5/perplexity``))
-        for one batch ``{"x": [B, T], "y": [B, T]}`` of int64 token ids;
-        the (empty) state comes back as it was.  Params are the fp32
-        masters; autograd through the compute cast hands back fp32
-        grads."""
+        """-> (loss, (new state, metrics ``cost/error/error_top5/
+        perplexity``)) for one batch ``{"x": [B, T], "y": [B, T]}`` of int64
+        token ids.  Params are the fp32 masters (a rank's shards under
+        tensor parallelism); autograd through the compute cast hands back
+        fp32 grads.  With a model group the fused loss is the
+        vocab-parallel one (the reference's :451-455)."""
         cp = self.precision.cast_to_compute(params)
-        h = self.apply_trunk(cp, batch["x"], train=train, gen=gen)
+        h, new_state = self.apply_trunk(cp, state, batch["x"], train=train,
+                                        gen=gen)
         y = batch["y"]
         if self.fused_loss_enabled():
-            loss, err1, err5 = fused_lm_xent(h, cp["head"]["w"],
-                                             cp["head"].get("b"), y)
+            xent = fused_lm_xent if mesh.model_size() == 1 else \
+                fused_lm_xent_vp
+            loss, err1, err5 = xent(h, cp["head"]["w"], cp["head"].get("b"),
+                                    y)
         else:
             logits = self.head(cp["head"], h)
             loss = softmax_cross_entropy(logits, y)
@@ -337,8 +430,61 @@ class TransformerLM(Model):
             err5 = (top_k_error(logits, y, k=5) if logits.shape[-1] >= 5
                     else torch.zeros((), device=h.device))
         if self.config.get("l2", 0.0):  # L2 folded into the cost
-            loss = loss + self.config["l2"] * global_sq_norm(params)
+            loss = loss + self.config["l2"] * global_sq_norm(
+                params, self.param_specs(params))
         metrics = {"cost": loss.detach(), "error": err1.detach(),
                    "error_top5": err5.detach(),
                    "perplexity": torch.exp(loss.detach())}
-        return loss, (state, metrics)
+        return loss, (new_state, metrics)
+
+
+class MoETransformerLM(TransformerLM):
+    """The mixture-of-experts LM (the reference's :472-528): every block's
+    MLP is a switch-routed :class:`MoEFFN` of ``n_experts`` global experts,
+    cut over the model group (expert parallelism shares the group with the
+    attention's tensor parallelism), and the blocks' mean load-balance
+    loss joins the training loss at ``moe_aux_weight``."""
+
+    default_config = {
+        **TransformerLM.default_config,
+        "n_experts": 8,
+        "capacity_factor": 1.25,
+        "moe_aux_weight": 0.01,
+    }
+
+    def _make_block(self) -> _Block:
+        cfg = self.config
+        return _MoEBlock(cfg["dim"], cfg["heads"], dropout=cfg["dropout"],
+                         attn_impl=cfg["attn_impl"],
+                         n_experts=cfg["n_experts"],
+                         capacity_factor=cfg["capacity_factor"])
+
+    def param_specs(self, params) -> dict:
+        """:meth:`TransformerLM.param_specs`, with the stacked expert
+        leaves (``up_w``, ``up_b``, ``down_w``, ``down_b`` under ``moe``)
+        cut on dim 0."""
+        specs = super().param_specs(params)
+        for name, p in params.items():
+            if isinstance(p, dict) and "moe" in p:
+                for k in ("up_w", "up_b", "down_w", "down_b"):
+                    specs[name]["moe"][k] = 0
+        return specs
+
+    def loss_fn(self, params, state, batch, gen, train: bool):
+        """:meth:`TransformerLM.loss_fn`, plus the blocks' mean ``aux``
+        (reported as ``moe_aux``; added at ``moe_aux_weight`` in
+        training).  The state carries each block's ``aux`` detached."""
+        loss, (new_state, metrics) = super().loss_fn(params, state, batch,
+                                                     gen, train)
+        auxes = [s["moe"]["aux"] for s in new_state.values()
+                 if isinstance(s, dict) and "moe" in s]
+        if auxes:
+            a = sum(auxes) / len(auxes)
+            metrics = {**metrics, "moe_aux": a.detach()}
+            if train:
+                loss = loss + self.config["moe_aux_weight"] * a
+            new_state = {k: {**s, "moe": {**s["moe"],
+                                          "aux": s["moe"]["aux"].detach()}}
+                         if isinstance(s, dict) and "moe" in s else s
+                         for k, s in new_state.items()}
+        return loss, (new_state, metrics)

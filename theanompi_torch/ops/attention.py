@@ -6,6 +6,13 @@ with its ``project_qkv``/``attend``/``project_out`` seams,
 ``blockwise_attention`` of ``theanompi_tpu/parallel/ring_attention.py:63``,
 the plain prefill path that ``attn_impl="blockwise"`` selects.  Ring
 attention (sequence parallelism) comes with a later slice.
+
+Under tensor parallelism (a bound layout with a model group, see
+:mod:`theanompi_torch.parallel.tensor`) q, k and v are column-parallel and
+o row-parallel: a rank holds ``heads / n_model`` heads, ``f`` is applied
+once for the three projections (the reference's :166), and ``attend``
+hands kernels 1-3 ``[B, T, heads / n_model, Dh]``.  Int8 serving weights
+stay unsharded: the reference serves without tensor parallelism.
 """
 
 from __future__ import annotations
@@ -16,7 +23,12 @@ from torch import nn
 from theanompi_torch.ops import initializers as init_lib
 from theanompi_torch.ops import quant
 from theanompi_torch.ops.flash_attention import FlashAttention
-from theanompi_torch.ops.layers import Dense, Layer
+from theanompi_torch.ops.layers import Layer
+from theanompi_torch.parallel.tensor import (
+    ColumnParallelDense,
+    RowParallelDense,
+    identity_fwd_psum_bwd,
+)
 
 _NEG_INF = -1e30
 
@@ -64,7 +76,9 @@ def blockwise_attention(q, k, v, causal: bool = False):
 
 class MultiHeadAttention(Layer):
     """Causal/bidirectional MHA over ``[B, T, D]``; params ``q/k/v/o``, each
-    a ``Dense`` ``{w [D, D], b [D]}``."""
+    a ``Dense`` ``{w [D, D], b [D]}`` (a rank's shards under tensor
+    parallelism: ``[D, D / n_model]`` for q, k, v and ``[D / n_model, D]``
+    for o)."""
 
     def __init__(self, dim: int, heads: int, causal: bool = True,
                  impl: str = "auto"):
@@ -79,8 +93,10 @@ class MultiHeadAttention(Layer):
         self.causal = causal
         self.impl = impl
         w02 = init_lib.normal(0.02)
-        self.proj = nn.ModuleDict(
-            {n: Dense(dim, w_init=w02) for n in ("q", "k", "v", "o")})
+        self.proj = nn.ModuleDict({
+            **{n: ColumnParallelDense(dim, input_synced=True, w_init=w02)
+               for n in ("q", "k", "v")},
+            "o": RowParallelDense(dim, w_init=w02)})
 
     def init(self, gen, in_shape):
         if in_shape[-1] != self.dim:
@@ -90,9 +106,10 @@ class MultiHeadAttention(Layer):
         return params, tuple(in_shape)
 
     def project_qkv(self, params, x):
-        """``[B, T, D] -> 3 x [B, T, H, Dh]``: one matmul against the
-        concatenated weights; int8 weights (which cannot concatenate) take
-        three int8 matmuls and a concat."""
+        """``[B, T, D] -> 3 x [B, T, h, Dh]``, ``h`` the heads the weights
+        hold (all of them, or a rank's ``heads / n_model``): one matmul
+        against the concatenated weights; int8 weights (which cannot
+        concatenate) take three int8 matmuls and a concat."""
         b, t, _ = x.shape
         head_dim = self.dim // self.heads
         ws = [params[n]["w"] for n in ("q", "k", "v")]
@@ -103,8 +120,8 @@ class MultiHeadAttention(Layer):
         if "b" in params["q"]:
             qkv = qkv + torch.cat([params[n]["b"] for n in ("q", "k", "v")]
                                   ).to(x.dtype)
-        q, k, v = qkv.split(self.dim, dim=-1)
-        shape = (b, t, self.heads, head_dim)
+        q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
+        shape = (b, t, q.shape[-1] // head_dim, head_dim)
         return q.reshape(shape), k.reshape(shape), v.reshape(shape)
 
     def attend(self, q, k, v):
@@ -122,8 +139,8 @@ class MultiHeadAttention(Layer):
 
     def forward(self, params, x):
         b, t, _ = x.shape
-        q, k, v = self.project_qkv(params, x)
-        out = self.attend(q, k, v).reshape(b, t, self.dim)
+        q, k, v = self.project_qkv(params, identity_fwd_psum_bwd(x))
+        out = self.attend(q, k, v).reshape(b, t, -1)
         return self.project_out(params, out)
 
 

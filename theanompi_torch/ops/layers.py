@@ -50,6 +50,7 @@ from theanompi_torch import dist as tdist
 from theanompi_torch.dist import DATA_AXIS
 from theanompi_torch.ops import initializers as init_lib
 from theanompi_torch.ops import quant
+from theanompi_torch.parallel import mesh
 
 
 class Layer(nn.Module):
@@ -439,11 +440,12 @@ class BatchNorm(StatefulLayer):
       and ``shift`` folded in fp32 from the (compute-dtype) scale and bias.
 
     ``axis_name`` is the reference's sync-BN: ``"data"`` averages the
-    batch mean and ``E[x^2]`` over the process group (every rank of the
-    data-parallel run) before the variance, the running update and the
+    batch mean and ``E[x^2]`` over the data axis (the process group, or
+    under a sharded :class:`~theanompi_torch.parallel.mesh.Layout` its
+    data group) before the variance, the running update and the
     normalize, through an all-reduce that autograd runs through (its
     backward sums the cotangents over the group, as the transpose of the
-    reference's ``pmean`` does); at a world of 1 it changes nothing."""
+    reference's ``pmean`` does); at one data worker it changes nothing."""
 
     def __init__(self, momentum: float = 0.9, eps: float = 1e-5,
                  axis_name=None, scale_init=init_lib.ones,
@@ -477,9 +479,11 @@ class BatchNorm(StatefulLayer):
             # the sum of squares accumulated in acc inside the reduction
             root = torch.linalg.vector_norm(x, 2, dim=dims, dtype=acc)
             mean_sq = root * root / n
-            if self.axis_name is not None and tdist.world() > 1:
-                stats = tdist.all_reduce_sum(torch.stack([mean, mean_sq]))
-                mean, mean_sq = stats / tdist.world()
+            n_data = mesh.data_size()
+            if self.axis_name is not None and n_data > 1:
+                stats = tdist.all_reduce_sum(torch.stack([mean, mean_sq]),
+                                             mesh.data_group())
+                mean, mean_sq = stats / n_data
             var = torch.clamp(mean_sq - mean * mean, min=0.0)
             m = self.momentum
             new_state = {"mean": m * state["mean"] + (1 - m) * mean.detach(),

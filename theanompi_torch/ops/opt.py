@@ -7,8 +7,13 @@ object with ``init(params) -> opt_state`` and ``update(grads, opt_state,
 params, lr) -> (new_params, new_opt_state)``.  Both are pure, as in the
 reference: ``update`` returns new trees and changes none it is given, so a
 caller can keep the old params (the trainer replaces its own references
-each step).  The caller runs it under ``torch.no_grad()``.  The
-sharding-aware norms come with the sharding slice.
+each step).  The caller runs it under ``torch.no_grad()``.
+
+The global norm is sharding-aware (the reference's :39-78): given the
+params' specs (each leaf's dim cut over the model group, or None), a cut
+leaf's squared norm is summed over the model group and a replicated leaf
+counted once, so clipping (``update(..., param_specs=)``) and a model's
+L2 term see the norm of the whole tree under tensor parallelism.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ import dataclasses
 
 import torch
 
+from theanompi_torch.parallel import mesh
+from theanompi_torch.parallel.tensor import psum_fwd_identity_bwd
 from theanompi_torch.tree import tree_leaves_with_path, tree_map
 
 
@@ -30,12 +37,29 @@ def _sorted_leaves(tree) -> list:
     return [tree]
 
 
-def global_sq_norm(grads):
-    """Global squared L2 norm of a gradient tree, in fp32."""
-    total = 0
-    for g in _sorted_leaves(grads):
-        total = total + g.float().square().sum()
-    return total
+def global_sq_norm(grads, specs=None):
+    """Global squared L2 norm of a tree, in fp32.  ``specs`` (a tree of
+    sharded dims, None for a replicated leaf): under a model group the cut
+    leaves' squares are summed over the group, through Megatron's ``g``
+    (forward all-reduce, backward pass-through), so the norm is the whole
+    tree's on every rank and an L2 term built on it has the one-process
+    gradient."""
+    leaves = _sorted_leaves(grads)
+    if specs is None or mesh.model_group() is None:
+        total = 0
+        for g in leaves:
+            total = total + g.float().square().sum()
+        return total
+    cut, whole = 0, 0
+    for g, dim in zip(leaves, _sorted_leaves(specs)):
+        sq = g.float().square().sum()
+        if dim is None:
+            whole = whole + sq
+        else:
+            cut = cut + sq
+    if torch.is_tensor(cut):
+        cut = psum_fwd_identity_bwd(cut)
+    return cut + whole
 
 
 def _clip_scale(sq, max_norm: float):
@@ -45,9 +69,10 @@ def _clip_scale(sq, max_norm: float):
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """Scale the whole tree so its global L2 norm is at most ``max_norm``."""
-    scale = _clip_scale(global_sq_norm(grads), max_norm)
+def clip_by_global_norm(grads, max_norm: float, specs=None):
+    """Scale the whole tree so its global L2 norm (sharding-aware with
+    ``specs``) is at most ``max_norm``."""
+    scale = _clip_scale(global_sq_norm(grads, specs), max_norm)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads)
 
 
@@ -123,13 +148,15 @@ class Optimizer:
     def init(self, params):
         raise NotImplementedError
 
-    def update(self, grads, opt_state, params, lr):
+    def update(self, grads, opt_state, params, lr, param_specs=None):
+        """-> (new params, new opt state); ``param_specs`` makes
+        clipping's norm the whole tree's under tensor parallelism."""
         raise NotImplementedError
 
-    def _preprocess(self, grads, params):
+    def _preprocess(self, grads, params, param_specs=None):
         """Clip, then weight decay, in that order (the reference's)."""
         if self.grad_clip:
-            grads = clip_by_global_norm(grads, self.grad_clip)
+            grads = clip_by_global_norm(grads, self.grad_clip, param_specs)
         if self.weight_decay:
             wd = self.weight_decay
             grads = tree_map(lambda g, p: g + wd * p, grads, params)
@@ -153,8 +180,8 @@ class SGD(Optimizer):
             return {}
         return {"velocity": tree_map(torch.zeros_like, params)}
 
-    def update(self, grads, opt_state, params, lr):
-        grads = self._preprocess(grads, params)
+    def update(self, grads, opt_state, params, lr, param_specs=None):
+        grads = self._preprocess(grads, params, param_specs)
         if self.momentum == 0.0:
             return tree_map(lambda p, g: p - lr * g, params, grads), opt_state
         mom = self.momentum
@@ -182,8 +209,8 @@ class Adam(Optimizer):
                 "v": tree_map(torch.zeros_like, params),
                 "t": torch.zeros((), dtype=torch.int32, device=device)}
 
-    def update(self, grads, opt_state, params, lr):
-        grads = self._preprocess(grads, params)
+    def update(self, grads, opt_state, params, lr, param_specs=None):
+        grads = self._preprocess(grads, params, param_specs)
         b1, b2, eps = self.b1, self.b2, self.eps
         t = opt_state["t"] + 1
         m = tree_map(lambda m, g: b1 * m + (1 - b1) * g, opt_state["m"],
@@ -210,8 +237,8 @@ class RMSProp(Optimizer):
     def init(self, params):
         return {"sq": tree_map(torch.zeros_like, params)}
 
-    def update(self, grads, opt_state, params, lr):
-        grads = self._preprocess(grads, params)
+    def update(self, grads, opt_state, params, lr, param_specs=None):
+        grads = self._preprocess(grads, params, param_specs)
         decay, eps = self.decay, self.eps
         sq = tree_map(lambda s, g: decay * s + (1 - decay) * torch.square(g),
                       opt_state["sq"], grads)

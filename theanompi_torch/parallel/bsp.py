@@ -6,7 +6,10 @@ the port runs the step on every rank of a ``torch.distributed`` process
 group (or one process alone): forward and backward on the rank's rows of
 the global batch, the exchanger's mean-reduce of the grads, the optimizer
 update (fused with the exchange under ``zero1``), then the metrics and
-model state averaged over the ranks.  ``exch_overlap`` issues the
+model state averaged over the ranks.  The rule key ``n_model`` makes
+model groups of that many ranks (tensor and expert parallelism;
+:mod:`theanompi_torch.parallel.mesh`): the exchange and the means then
+run over the data groups.  ``exch_overlap`` issues the
 buckets' collectives from backward, and ``exch_ramp`` swaps the exchange
 strategy at epoch boundaries (:mod:`theanompi_torch.parallel.overlap`).
 The run fingerprint of its checkpoints carries the ramp's base strategy
@@ -20,6 +23,7 @@ from __future__ import annotations
 from theanompi_torch.dist import DATA_AXIS
 from theanompi_torch.parallel.exchanger import BUCKETED_STRATEGIES, Exchanger
 from theanompi_torch.parallel.overlap import RampSchedule
+from theanompi_torch.parallel.tensor import sharded
 from theanompi_torch.parallel.trainer import BaseTrainer, Rule
 
 
@@ -50,7 +54,16 @@ class BSPTrainer(BaseTrainer):
 
     def init_opt_state(self):
         """The optimizer state of ``self.params``: under ``zero1`` this
-        rank's slices of the flat buckets, else the model's tree."""
+        rank's slices of the flat buckets, else the model's tree.
+        ``zero1`` over params cut by a model group is refused
+        (``ValueError``; the reference's :103-118): a flat bucket of one
+        rank's shards is not the data group's replicated bucket."""
+        if self.exchanger.fuses_update and self.specs is not None \
+                and sharded(self.specs):
+            raise ValueError(
+                f"exch_strategy 'zero1' requires replicated (data-parallel) "
+                f"params; the model's specs shard leaves over mesh axis "
+                f"'model' (size {self.layout.n_model})")
         if self.exchanger.fuses_update:
             return self.exchanger.zero1_init_opt_state(
                 self.optimizer, self.params, self.n_workers)

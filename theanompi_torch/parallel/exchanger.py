@@ -3,8 +3,10 @@
 Counterpart of ``theanompi_tpu/parallel/exchanger.py``.  The reference's
 strategies are pure functions traced inside ``shard_map`` over the
 ``data`` mesh axis; here each rank is a process, and a strategy issues
-explicit collectives over the default process group (NCCL on cards, gloo
-on CPU ranks):
+explicit collectives over the data axis: the default process group (NCCL
+on cards, gloo on CPU ranks), or under a sharded
+:class:`~theanompi_torch.parallel.mesh.Layout` this rank's data group
+(the ranks that hold the same shards):
 
 - leaf-wise, one collective per floating leaf (:151-235): ``none`` (no
   exchange; replicas diverge), ``psum`` (``all_reduce`` sum, then / n),
@@ -93,10 +95,10 @@ import functools
 import torch
 import torch.distributed as dist
 
-from theanompi_torch import dist as tdist
 from theanompi_torch.models.data.base import derive_seed
 from theanompi_torch.ops.opt import sharded_update
 from theanompi_torch.ops.quant import quantize_chunk
+from theanompi_torch.parallel import mesh
 
 #: leaf-wise strategies: one collective per floating leaf
 LEAFWISE_STRATEGIES = ("none", "psum", "psum_bf16", "ring", "ring_bf16")
@@ -174,11 +176,12 @@ def unflatten(tree, leaves: list):
 def _shift(send: torch.Tensor, n: int) -> torch.Tensor:
     """Send ``send`` to the next rank of the ring and -> what the previous
     rank sent (the reference's ``ppermute`` over ``i -> i + 1``)."""
-    r = dist.get_rank()
+    r, group = mesh.data_index(), mesh.data_group()
     recv = torch.empty_like(send)
     for req in dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, send, (r + 1) % n),
-            dist.P2POp(dist.irecv, recv, (r - 1) % n)]):
+            dist.P2POp(dist.isend, send, mesh.data_peer((r + 1) % n), group),
+            dist.P2POp(dist.irecv, recv, mesh.data_peer((r - 1) % n),
+                       group)]):
         req.wait()
     return recv
 
@@ -200,7 +203,7 @@ def _ring_allreduce(x: torch.Tensor, n: int, wire_dtype=None):
         chunks = chunks.to(wire_dtype)
     else:
         chunks = chunks.clone()  # never write into the caller's tensor
-    idx = dist.get_rank()
+    idx = mesh.data_index()
     for s in range(n - 1):
         recv = _shift(chunks[(idx - s) % n], n)
         tgt = (idx - s - 1) % n
@@ -225,7 +228,7 @@ def _ring_allreduce_int8(x: torch.Tensor, n: int, seed: int):
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
     chunks = flat.reshape(n, -1).clone()
-    idx = dist.get_rank()
+    idx = mesh.data_index()
 
     def gen(s):
         g = torch.Generator(device=x.device)
@@ -251,9 +254,9 @@ def _ring_allreduce_int8(x: torch.Tensor, n: int, seed: int):
 
 
 def _all_reduce(x: torch.Tensor) -> torch.Tensor:
-    """The group's sum of ``x`` in a new tensor."""
+    """The data group's sum of ``x`` in a new tensor."""
     out = x.clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=mesh.data_group())
     return out
 
 
@@ -338,7 +341,7 @@ def _unpack(buf: torch.Tensor, bucket: _Bucket) -> dict:
 
 
 def _fused_reduce(tree, mean: bool):
-    n = tdist.world()
+    n = mesh.data_size()
     if n == 1:
         return tree
     leaves = flatten(tree)
@@ -396,7 +399,7 @@ class BucketExchange:
                  reverse: bool = False):
         self.exchanger = exchanger
         self.seed = seed
-        self.buckets = exchanger.layout(tree, tdist.world())
+        self.buckets = exchanger.layout(tree, mesh.data_size())
         order = range(len(self.buckets))
         self.order = list(reversed(order) if reverse else order)
         self._owner = {i: b for b, bucket in enumerate(self.buckets)
@@ -512,7 +515,7 @@ class Exchanger:
             raise ValueError(
                 "zero1 fuses the exchange into the optimizer update; call "
                 "exchange_and_update(grads, opt_state, params, lr, opt)")
-        n = tdist.world()
+        n = mesh.data_size()
         if n == 1 or self.strategy == "none":
             return tree
         leaves = flatten(tree)
@@ -537,19 +540,20 @@ class Exchanger:
         ``dynamic_index_in_dim`` give it).  The all-reduces and the
         scatter are asynchronous; the rings run their point-to-point
         hops here, to the end.  At a world of 1 the result is ``buf``."""
-        n, s = tdist.world(), self.strategy
+        n, s, group = mesh.data_size(), self.strategy, mesh.data_group()
         if n == 1:
             return _Pending(None, lambda: buf)
         if s == "psum_bucket":
-            work = dist.all_reduce(buf, async_op=True)
+            work = dist.all_reduce(buf, group=group, async_op=True)
             return _Pending(work, lambda: buf / n)
         if s == "psum_bf16_bucket":
             summed = buf.to(torch.bfloat16)
-            work = dist.all_reduce(summed, async_op=True)
+            work = dist.all_reduce(summed, group=group, async_op=True)
             return _Pending(work, lambda: (summed.float() / n).to(buf.dtype))
         if s == "zero1":
             chunk = buf.new_empty(buf.numel() // n)
-            work = dist.reduce_scatter_tensor(chunk, buf, async_op=True)
+            work = dist.reduce_scatter_tensor(chunk, buf, group=group,
+                                              async_op=True)
             return _Pending(work, lambda: chunk / n)
         if s == "ring_bucket":
             red = _ring_allreduce(buf, n) / n
@@ -578,7 +582,7 @@ class Exchanger:
         if not self.fuses_update:
             raise ValueError(f"exchange_and_update is zero1's; strategy "
                              f"{self.strategy!r} calls exchange()")
-        n, r = tdist.world(), tdist.rank()
+        n, r = mesh.data_size(), mesh.data_index()
         p_leaves = flatten(params)
         if inflight is None:
             inflight = BucketExchange(self, params, seed).feed(
@@ -592,7 +596,9 @@ class Exchanger:
                 gathers[bi] = _Pending(None, lambda: shard)
                 return
             full = shard.new_empty(n * shard.numel())
-            work = dist.all_gather_into_tensor(full, shard, async_op=True)
+            work = dist.all_gather_into_tensor(full, shard,
+                                               group=mesh.data_group(),
+                                               async_op=True)
             gathers[bi] = _Pending(work, lambda: full)
 
         _, new_opt_state = sharded_update(
@@ -632,7 +638,7 @@ class Exchanger:
         host tensors, so there each slice goes through its rank's host and
         rank 0 assembles the buckets in host memory.  At a world of 1 the
         state is global already."""
-        n, r = tdist.world(), tdist.rank()
+        n, r = mesh.data_size(), mesh.data_index()
         if n == 1:
             return opt_state
         on_host = dist.get_backend() == "gloo"
@@ -641,7 +647,8 @@ class Exchanger:
             shard = (shard.cpu() if on_host else shard).contiguous()
             full = shard.new_empty(n * shard.numel()) if r == 0 else None
             dist.gather(shard, None if full is None
-                        else list(full.view(n, -1)), dst=0)
+                        else list(full.view(n, -1)), dst=mesh.data_peer(0),
+                        group=mesh.data_group())
             return full
 
         out = {k: [gather(s) for s in v] if isinstance(v, list) else v
@@ -653,7 +660,7 @@ class Exchanger:
         collective and no memory: meta tensors for buckets that land on
         the card (the shapes a checkpoint's pinned staging needs), none
         for buckets assembled on the host."""
-        n = tdist.world()
+        n = mesh.data_size()
         if n == 1:
             return opt_state
         if dist.get_backend() == "gloo":

@@ -13,6 +13,11 @@ a group: the one-process run they are held against.
   per-rank grads, for an optimizer;
 - :func:`bsp_run` — steps of the BSP rule, through ``BSP().init`` on each
   rank, with what the checks need from the first step;
+- :func:`tp_run` — steps of BSP with model groups (``n_model``: tensor
+  and expert parallelism), the shards gathered into the global layout,
+  and the collectives of each step counted by kind; :func:`tp_layer_cases`
+  — the model group's layers alone (``f``, ``g``, the column and row
+  splits, the vocab-parallel loss, the MoE);
 - :func:`launch` — one launcher run on each rank (``launcher.run_rank``:
   training, checkpoints, resume), what ``--devices N`` runs;
 - :func:`async_run` — steps of an async rule (EASGD, LocalSGD, GOSGD)
@@ -44,10 +49,11 @@ from theanompi_torch.parallel.exchanger import (
     flatten,
     fused_pmean,
 )
-from theanompi_torch.tree import tree_leaves_with_path, tree_to
+from theanompi_torch.tree import tree_leaves_with_path, tree_map, tree_to
 
-#: the collectives the exchange issues
-COLLECTIVES = ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor")
+#: the collectives counted: the exchange's, and the MoE's all-to-all
+COLLECTIVES = ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor",
+               "all_to_all_single")
 
 
 @contextlib.contextmanager
@@ -370,6 +376,216 @@ def _bsp_steps(tr, tap, batches, job) -> dict:
             "global_batch": tr.global_batch}
 
 
+def tp_run(device, job: dict) -> dict:
+    """Steps of BSP at ``rule_config["n_model"]`` on this rank.  ``job``
+    as :func:`bsp_run`'s (``modelfile``, ``modelclass``, ``model_config``,
+    ``rule_config``, ``steps``, ``allow_tf32``, ``batches``, ``out``), and
+    ``init``: a ``.pt`` of whole ``{"params", "state"}`` (the global
+    layout; None: the seeded init), cut by the trainer
+    (``BaseTrainer.place``).  Rank r writes ``<out>-r<r>.pt`` with the
+    whole params before the first step (``params0``), after it
+    (``params1``) and at the end (``params``), the first step's exchanged
+    grads (``grads1``) and the state after it (``state1``), each gathered
+    over the model group; only the keys listed in ``save`` (absent: all;
+    empty: none is gathered), on the ranks in ``save_ranks`` (None: all).
+    -> per-step metrics, host seconds, collectives (by
+    ``torch.distributed`` name, and the model group's by kind,
+    :data:`theanompi_torch.parallel.tensor.COLLECTIVES`)
+    and the MoE's share of dropped tokens on this rank; the checksum of
+    the replicated params after each step (:func:`digest`: the same on
+    every rank of a run); the first step's exchanged grads' global norm,
+    the kernels' launches over the steps, the heads a rank's attention
+    holds, the rank's layout, device and peak memory, and the MoE's
+    all-to-all transport where the model has one."""
+    from theanompi_torch import kernels as K
+    from theanompi_torch.ops import flash_attention  # noqa: F401
+    from theanompi_torch.ops import moe as moe_lib
+    from theanompi_torch.ops import paged_attention  # noqa: F401
+    from theanompi_torch.parallel import tensor
+    from theanompi_torch.parallel.bsp import BSP
+
+    if job.get("allow_tf32") is not None:
+        torch.backends.cuda.matmul.allow_tf32 = bool(job["allow_tf32"])
+        torch.backends.cudnn.allow_tf32 = bool(job["allow_tf32"])
+    rule = BSP(dict(job.get("rule_config") or {})).init(
+        modelfile=job["modelfile"], modelclass=job["modelclass"],
+        model_config=job["model_config"], device=device)
+    tr = rule.trainer
+    lay = tr.layout
+    if job.get("init"):
+        trees = torch.load(job["init"])
+        tr.place(trees["params"], trees["state"])
+    tap = _Tap(tr.exchanger)
+    tr.exchanger = tap
+    tr.compile_iter_fns()
+    steps = int(job["steps"])
+    lo, hi = tr.rows(tr.global_batch)
+    with np.load(job["batches"]) as z:
+        stacked = {k: z[k] for k in z.files}
+    cuda = tr.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(tr.device)
+    lr = tr.model.adjust_hyperp(0)
+    # the gathers are collectives: every rank takes them, the ranks of
+    # save_ranks write
+    keep = set(job.get("save", ("params0", "params1", "params", "grads1",
+                                "state1")))
+    ranks = job.get("save_ranks")
+    with lay.bound():
+        saved = {"params0": tr.gathered(tr.params)} if "params0" in keep \
+            else {}
+    specs = tr.specs or tree_map(lambda _: None, tr.params)
+    metrics, step_s, digests, per_step = [], [], [], []
+    for k in K.KERNELS:
+        k.launches = 0
+    for i in range(steps):
+        batch = {k: v[i][lo:hi] for k, v in stacked.items()}
+        kinds = collections.Counter(tensor.COLLECTIVES)
+        moe_lib.DROPS.update(routed=0, dropped=0)
+        t0 = time.perf_counter()
+        with count_collectives() as calls:
+            m = tr.train_iter(batch, lr)
+        if cuda:
+            torch.cuda.synchronize(tr.device)
+        step_s.append(time.perf_counter() - t0)
+        routed = moe_lib.DROPS["routed"]
+        per_step.append({"calls": dict(calls), "kinds": dict(
+            collections.Counter(tensor.COLLECTIVES) - kinds),
+            "dropped_share": (float(moe_lib.DROPS["dropped"]) / routed
+                              if routed else None)})
+        metrics.append({k: float(v) for k, v in m.items()})
+        with lay.bound():
+            if i == 0:
+                grad_norm = float(torch.sqrt(opt_lib.global_sq_norm(
+                    tap.grads, tr.specs)))
+                for key, tree in (("params1", tr.params),
+                                  ("state1", tr.state),
+                                  ("grads1", tap.grads)):
+                    if key in keep:
+                        saved[key] = (tree if key == "state1"
+                                      else tr.gathered(tree))
+        digests.append(digest([x for (_, x), (_, d) in zip(
+            tree_leaves_with_path(tr.params), tree_leaves_with_path(specs))
+            if d is None]))
+    launches = {k.name: k.launches for k in K.KERNELS}
+    if "params" in keep:
+        with lay.bound():
+            saved["params"] = tr.gathered(tr.params)
+    if job.get("out") and keep and (ranks is None or tdist.rank() in ranks):
+        torch.save(tree_to(saved, "cpu"),
+                   f"{job['out']}-r{tdist.rank()}.pt")
+    moe = tr.model.config.get("n_experts")
+    head_dim = tr.model.config["dim"] // tr.model.config["heads"]
+    q = next(x for p, x in tree_leaves_with_path(tr.params)
+             if p[-3:] == ("attn", "q", "w"))
+    return {"metrics": metrics, "step_s": step_s, "digests": digests,
+            "per_step": per_step, "grad_norm": grad_norm,
+            "launches": launches, "device": str(tr.device),
+            "local_heads": q.shape[1] // head_dim,
+            "layout": {"n_data": lay.n_data, "n_model": lay.n_model,
+                       "data_index": lay.data_index,
+                       "model_index": lay.model_index},
+            "peak_bytes": (torch.cuda.max_memory_allocated(tr.device)
+                           if cuda else 0),
+            "a2a_transport": (moe_lib.a2a_transport(tr.device,
+                                                    lay.model_group)
+                              if moe and lay.model_group is not None
+                              else None),
+            "global_batch": tr.global_batch}
+
+
+def tp_layer_cases(device, in_path: str, out_dir: str, cases) -> None:
+    """The model group's layers on this rank, every rank one model group
+    (``n_model`` = the world).  ``in_path``: an ``.npz`` of whole inputs
+    and weights, the same on every rank (``f/x``, ``f/ct`` ``[n, ...]``:
+    row r rank r's cotangent; ``g/x`` ``[n, ...]``, ``g/ct``; ``mlp/*``;
+    ``vp/*``; ``moe/*``).  ``cases``: which of ``"f"``, ``"g"``,
+    ``"mlp"`` (column-parallel ``up``, GELU, row-parallel ``down``),
+    ``"vp"`` (the vocab-parallel fused loss) and ``"moe"`` (``MoEFFN``,
+    its ``moe/capacity_factor``) to run.  Writes
+    ``out_dir/<case>-r<rank>.npz``: the outputs, and the grads of
+    ``sum(out * ct)`` (``vp``: of the loss; ``moe``: plus ``moe/aux_w``
+    times its aux) against the inputs and this rank's weight shards."""
+    import torch.nn.functional as F
+
+    from theanompi_torch.ops.losses import fused_lm_xent_vp
+    from theanompi_torch.ops.moe import MoEFFN
+    from theanompi_torch.parallel import mesh
+    from theanompi_torch.parallel.tensor import (
+        ColumnParallelDense,
+        RowParallelDense,
+        identity_fwd_psum_bwd,
+        psum_fwd_identity_bwd,
+        shard_tree,
+    )
+
+    r, n = tdist.rank(), tdist.world()
+    with np.load(in_path) as z:
+        data = {k: torch.from_numpy(z[k]).to(device) for k in z.files}
+    lay = mesh.make_layout(n_model=n)
+
+    def leaf(x):
+        return x.clone().requires_grad_()
+
+    def save(case, out, ins):
+        grads = torch.autograd.grad(out[0], list(ins.values()))
+        np.savez(os.path.join(out_dir, f"{case}-r{r}.npz"),
+                 **{k: v.detach().cpu().numpy() for k, v in out[1].items()},
+                 **{f"d_{k}": g.cpu().numpy()
+                    for k, g in zip(ins, grads)})
+
+    with lay.bound():
+        if "f" in cases:
+            x = leaf(data["f/x"])
+            y = identity_fwd_psum_bwd(x)
+            save("f", ((y * data["f/ct"][r]).sum(), {"y": y}), {"x": x})
+        if "g" in cases:
+            x = leaf(data["g/x"][r])
+            y = psum_fwd_identity_bwd(x)
+            save("g", ((y * data["g/ct"]).sum(), {"y": y}), {"x": x})
+        if "mlp" in cases:
+            specs = {"up": {"w": 1, "b": 0}, "down": {"w": 0, "b": None}}
+            p = shard_tree({"up": {"w": data["mlp/up_w"],
+                                   "b": data["mlp/up_b"]},
+                            "down": {"w": data["mlp/down_w"],
+                                     "b": data["mlp/down_b"]}},
+                           specs, r, n)
+            ins = {"x": leaf(data["mlp/x"]), "up_w": leaf(p["up"]["w"]),
+                   "up_b": leaf(p["up"]["b"]),
+                   "down_w": leaf(p["down"]["w"]),
+                   "down_b": leaf(p["down"]["b"])}
+            up = ColumnParallelDense(data["mlp/up_w"].shape[1])
+            down = RowParallelDense(data["mlp/down_w"].shape[1])
+            h = F.gelu(up({"w": ins["up_w"], "b": ins["up_b"]}, ins["x"]),
+                       approximate="tanh")
+            y = down({"w": ins["down_w"], "b": ins["down_b"]}, h)
+            save("mlp", ((y * data["mlp/ct"]).sum(), {"y": y}), ins)
+        if "vp" in cases:
+            v = data["vp/w"].shape[1] // n
+            ins = {"h": leaf(data["vp/h"]),
+                   "w": leaf(data["vp/w"][:, r * v:(r + 1) * v]),
+                   "b": leaf(data["vp/b"][r * v:(r + 1) * v])}
+            loss, e1, e5 = fused_lm_xent_vp(
+                ins["h"], ins["w"], ins["b"], data["vp/y"],
+                chunk_tokens=int(data["vp/chunk"]))
+            save("vp", (loss, {"loss": loss, "e1": e1, "e5": e5}), ins)
+        if "moe" in cases:
+            layer = MoEFFN(data["moe/x"].shape[-1],
+                           data["moe/up_w"].shape[0],
+                           capacity_factor=float(data["moe/capacity_factor"]))
+            full = {k: data[f"moe/{k}"] for k in ("up_w", "up_b", "down_w",
+                                                  "down_b")}
+            e = data["moe/up_w"].shape[0] // n
+            ins = {"x": leaf(data["moe/x"]),
+                   "gate_w": leaf(data["moe/gate_w"]),
+                   **{k: leaf(v[r * e:(r + 1) * e]) for k, v in full.items()}}
+            y, st = layer.apply_stateful(
+                {"gate": {"w": ins["gate_w"]},
+                 **{k: ins[k] for k in full}}, {}, ins["x"], train=True)
+            obj = (y * data["moe/ct"]).sum() + data["moe/aux_w"] * st["aux"]
+            save("moe", (obj, {"y": y, "aux": st["aux"]}), ins)
+
+
 def pmean_case(device, in_path: str) -> tuple[dict, int]:
     """:func:`fused_pmean` of this rank's rows of ``in_path`` (as in
     :func:`exchange_cases`); -> (the result, the all-reduces issued)."""
@@ -603,6 +819,7 @@ def compare_rules(device, kwargs: dict) -> dict:
 
 
 JOBS = {"exchange_cases": exchange_cases, "bsp_run": bsp_run,
+        "tp_run": tp_run, "tp_layer_cases": tp_layer_cases,
         "launch": launch, "async_run": async_run,
         "rule_exchange_cases": rule_exchange_cases,
         "warmup_case": warmup_case, "compare_rules": compare_rules,

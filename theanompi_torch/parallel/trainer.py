@@ -20,17 +20,36 @@ of ``batch_size x N`` rows (:410), rank r on rows ``[r b, (r + 1) b)``
 of each, which is how the mesh shards them.  At one process the group is
 absent and every collective is skipped.
 
+With ``n_model`` above 1 (BSP only; :class:`~theanompi_torch.parallel.
+mesh.Layout`) the world is ``n_data x n_model`` ranks: ``init(devices=n)``
+means n data workers (the reference's :1500-1514), a rank's batch rows
+and the worker count come from its data index, and the exchange, the
+means of metrics and state, validation and sync-BN run over its data
+group.  Each rank holds its shards of the params (the model's
+``param_specs``; built whole from the seed, or restored whole, then cut:
+:meth:`BaseTrainer.place`), the layers' collectives run over its model
+group, and clipping's norm is the whole tree's.  The trainer binds its
+layout around everything it runs (:meth:`~theanompi_torch.parallel.
+mesh.Layout.bound`).  A checkpoint holds the reference's global layout:
+each rank's shards are gathered over its model group and rank 0 writes
+them; a resume cuts them again, and a resume at another ``n_model`` is
+refused (``CheckpointReshardableMismatch``, exit 78; the reshard is item
+14).  ``zero1`` is refused over sharded params, as the reference refuses
+it.
+
 Params are fp32 masters; the model casts to the compute dtype inside
 ``loss_fn``, and autograd through that cast returns fp32 grads.  The
 trainer holds the model's state (BatchNorm running statistics) beside
 params and optimizer state: each step returns the new one, and
 validation evaluates on it.  Dropout draws from a ``torch.Generator`` on
 the trainer's device seeded with ``derive_seed("dropout", seed, step)``
-(``..., step, i`` for micro-batch ``i``), with the rank appended above a
-world of 1 (:func:`theanompi_torch.dist.replica_key`), so masks repeat
-for the same seed and step and differ across steps and ranks; the
-exchange (``ring_int8``'s rounding) draws from its own per-rank stream,
-``derive_seed("exchange", seed, step, ...rank)`` (the reference's
+(``..., step, i`` for micro-batch ``i``), with the data index appended
+above one data worker (:func:`theanompi_torch.parallel.mesh.
+replica_key`), so masks repeat for the same seed and step, differ across
+steps and data workers, and are the same on the ranks of one model group
+(at ``n_model`` 1 the data index is the rank); the exchange
+(``ring_int8``'s rounding) draws from its own per-replica stream,
+``derive_seed("exchange", seed, step, ...data index)`` (the reference's
 ``EXCHANGE_RNG_TAG``).  Device syncs happen only at print boundaries and
 in validation.  Only rank 0 prints and saves the recorder.
 
@@ -88,12 +107,15 @@ end (without letting its error hide one already raised) and drops the
 
 Not carried by this slice, and refused rather than ignored: the elastic
 reshard (``resume_reshard``), telemetry, the resilience stack (fault
-plans, sentinel, watchdog, preemption), the profiler window and sharded
-meshes (:data:`NOT_PORTED_KEYS`).
+plans, sentinel, watchdog, preemption) and the profiler window
+(:data:`NOT_PORTED_KEYS`, each refused only where its value turns the
+feature on), and the ``seq`` and ``pipe`` axes above 1 (item 13b).
 """
 
 from __future__ import annotations
 
+import functools
+import os
 import sys
 from typing import Any
 
@@ -109,31 +131,74 @@ from theanompi_torch.parallel.exchanger import (
     flatten,
     fused_pmean,
 )
+from theanompi_torch.parallel import mesh
 from theanompi_torch.parallel.mesh import resolve_device
+from theanompi_torch.parallel.tensor import (
+    check_divisible,
+    full_like,
+    gather_tree,
+    shard_tree,
+)
 from theanompi_torch.tree import tree_leaves_with_path, tree_map, tree_to
 from theanompi_torch.utils import checkpoint as ckpt_lib
 from theanompi_torch.utils.helper_funcs import import_model, to_device
 from theanompi_torch.utils.recorder import Recorder
 
-#: keys of the reference's rule config whose machinery is not ported yet
-#: (every rule is: BSP, EASGD, LocalSGD and GOSGD); a config that sets one
-#: raises instead of training without it.  ``n_model``, ``n_seq`` and
-#: ``n_pipe`` pass at 1, which shards nothing
-NOT_PORTED_KEYS = (
-    "resume_reshard", "telemetry_dir",
-    "telemetry_max_bytes", "telemetry_keep", "telemetry_health",
-    "telemetry_blackbox", "telemetry_profile", "profile_dir",
-    "profile_window", "fault_plan", "sentinel_policy",
-    "sentinel_max_skips", "sentinel_max_rollbacks", "watchdog",
-    "watchdog_multiple", "watchdog_min_s", "watchdog_poll_s",
-    "heartbeat_path", "handle_preemption", "n_model", "n_seq", "n_pipe")
+def _watchdog_off(c: dict) -> bool:
+    """The reference's ``watchdog_enabled`` false: False, or None with no
+    heartbeat path (the key, or ``THEANOMPI_HEARTBEAT``)."""
+    w = c.get("watchdog")
+    return w is False or (w is None and not c.get("heartbeat_path")
+                          and not os.environ.get("THEANOMPI_HEARTBEAT"))
+
+
+def _preemption_off(c: dict) -> bool:
+    """The reference's ``preemption_enabled`` false: False, or None
+    outside a supervisor (``THEANOMPI_SUPERVISED``)."""
+    h = c.get("handle_preemption")
+    return h is False or (h is None and
+                          os.environ.get("THEANOMPI_SUPERVISED") != "1")
+
+
+#: the reference's rule-config features whose machinery is not ported yet
+#: (for every rule: BSP, EASGD, LocalSGD and GOSGD): each feature's test
+#: that a config leaves it off, as the reference resolves it
+#: (``ResilienceConfig``, ``theanompi_tpu/resilience/__init__.py:83-102``,
+#: and the trainer's ``resume_reshard``, ``telemetry_dir``, ``profile_dir``),
+#: and its keys: the switch first, then the tuning keys, which change
+#: nothing while it is off.  A key of a feature that the config turns on
+#: raises instead of training without it
+_UNPORTED = (
+    (lambda c: not c.get("resume_reshard"), ("resume_reshard",)),
+    (lambda c: c.get("telemetry_dir") is None,
+     ("telemetry_dir", "telemetry_max_bytes", "telemetry_keep",
+      "telemetry_health", "telemetry_blackbox", "telemetry_profile")),
+    (lambda c: c.get("profile_dir") is None,
+     ("profile_dir", "profile_window")),
+    (lambda c: c.get("fault_plan") is None, ("fault_plan",)),
+    (lambda c: c.get("sentinel_policy") is None,
+     ("sentinel_policy", "sentinel_max_skips", "sentinel_max_rollbacks")),
+    (_watchdog_off, ("watchdog", "watchdog_multiple", "watchdog_min_s",
+                     "watchdog_poll_s", "heartbeat_path")),
+    (_preemption_off, ("handle_preemption",)),
+)
+#: every key of :data:`_UNPORTED`
+NOT_PORTED_KEYS = tuple(k for _, keys in _UNPORTED for k in keys)
 #: the rule keys of the sharded mesh axes, by the reference's axis name
 AXIS_KEYS = {"model": "n_model", "seq": "n_seq", "pipe": "n_pipe"}
+
+
+def unported_keys(config: dict) -> list:
+    """The keys of ``config`` whose feature it turns on and the port does
+    not carry yet."""
+    return sorted(k for off, keys in _UNPORTED if not off(config)
+                  for k in keys if k in config)
 
 
 #: the classes of a resume's error that every rank raises alike (the
 #: last stands for any other)
 _RESUME_ERRORS = (ckpt_lib.CheckpointChainExhausted,
+                  ckpt_lib.CheckpointReshardableMismatch,
                   ckpt_lib.CheckpointFingerprintError, RuntimeError)
 
 
@@ -167,10 +232,10 @@ def _unflatten(tree, leaves: list):
 
 
 def _dropout_gen(device, seed: int, *key):
-    """The dropout generator of one step (and micro-batch) on this
-    rank."""
+    """The dropout generator of one step (and micro-batch) on this rank,
+    keyed by its data index."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(derive_seed("dropout", seed, *key, *tdist.replica_key()))
+    gen.manual_seed(derive_seed("dropout", seed, *key, *mesh.replica_key()))
     return gen
 
 
@@ -265,7 +330,8 @@ def _custom_step(model, optimizer, exchanger, seed: int, n_subb: int):
     return custom_step
 
 
-def make_train_step(model, optimizer, exchanger, seed: int, device):
+def make_train_step(model, optimizer, exchanger, seed: int, device,
+                    specs_of=None):
     """The per-step function: ``step(params, state, opt_state, batch, lr,
     step) -> (new_params, new_state, new_opt_state, metrics)`` — loss and
     backward (over ``n_subb`` micro-batches when the model config asks;
@@ -277,7 +343,9 @@ def make_train_step(model, optimizer, exchanger, seed: int, device):
     ``make_custom_step`` runs its own inner step instead
     (:func:`_custom_step`).  ``exchanger=None`` is the async rules'
     collective-free local step: the update from this rank's own grads,
-    its own metrics and state."""
+    its own metrics and state.  ``specs_of() ->`` the params' specs under
+    a model group, read at each step (clipping's norm is the whole
+    tree's)."""
     n_subb = int(model.config.get("n_subb", 1) or 1)
     if hasattr(model, "make_custom_step"):
         return _custom_step(model, optimizer, exchanger, seed, n_subb)
@@ -285,9 +353,9 @@ def make_train_step(model, optimizer, exchanger, seed: int, device):
         return _local_step(model, optimizer, seed, device, n_subb)
 
     def train_step(params, state, opt_state, batch, lr, step):
-        xseed = derive_seed("exchange", seed, step, *tdist.replica_key())
+        xseed = derive_seed("exchange", seed, step, *mesh.replica_key())
         hooks = (BucketExchange(exchanger, params, xseed, reverse=True)
-                 if exchanger.overlap and tdist.world() > 1 else None)
+                 if exchanger.overlap and mesh.data_size() > 1 else None)
         if n_subb == 1:
             gen = _dropout_gen(device, seed, step)
             new_state, metrics, grads = loss_and_grads(model, params, state,
@@ -304,7 +372,8 @@ def make_train_step(model, optimizer, exchanger, seed: int, device):
             else:
                 grads = exchanger.exchange(grads, seed=xseed, inflight=hooks)
                 new_params, new_opt_state = optimizer.update(
-                    grads, opt_state, params, lr)
+                    grads, opt_state, params, lr,
+                    param_specs=specs_of() if specs_of else None)
             metrics = fused_pmean(metrics)
             new_state = fused_pmean(new_state)
         return new_params, new_state, new_opt_state, metrics
@@ -330,6 +399,15 @@ def _local_step(model, optimizer, seed: int, device, n_subb: int):
     return local_step
 
 
+def _bound(method):
+    """Run a trainer method with the trainer's layout bound."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with self.layout.bound():
+            return method(self, *args, **kwargs)
+    return run
+
+
 def close_feed(batches) -> None:
     """Close a prefetcher or generator (None and plain iterators: no-op)."""
     close = getattr(batches, "close", None)
@@ -340,7 +418,8 @@ def close_feed(batches) -> None:
 class BaseTrainer:
     """Iterate-validate-record skeleton; a rule supplies ``init_state``
     and the exchanger (reference names: ``compile_iter_fns``,
-    ``train_iter``, ``val_iter``)."""
+    ``train_iter``, ``val_iter``).  ``layout``: the rank layout (None:
+    the data-only one over the process group)."""
 
     def __init__(self, model, device=None, recorder: Recorder | None = None,
                  seed: int = 0, prefetch_depth: int = 2,
@@ -349,8 +428,10 @@ class BaseTrainer:
                  checkpoint_async: bool = True,
                  checkpoint_verify: str = "auto",
                  checkpoint_every_n_iters: int = 0,
-                 resume_force: bool = False):
+                 resume_force: bool = False,
+                 layout: mesh.Layout | None = None):
         self.model = model
+        self.layout = layout if layout is not None else mesh.make_layout()
         self.prefetch_depth = int(prefetch_depth)
         self.prefetch_stall_timeout = (
             None if prefetch_stall_timeout is None
@@ -359,8 +440,13 @@ class BaseTrainer:
         self.recorder = recorder or Recorder()
         self.seed = seed
         self.optimizer = model.build_optimizer()
-        self.rank, self.n_workers = tdist.rank(), tdist.world()
+        # rank: the process's, which decides who writes; the workers and
+        # their batch rows are the data axis's
+        self.rank, self.world = tdist.rank(), tdist.world()
+        self.n_workers = self.layout.n_data
         self.global_batch = model.batch_size * self.n_workers
+        #: the params' specs under a model group (None: nothing is cut)
+        self.specs = None
         self.exchanger = None
         self._step_fn = None
         self.params = None
@@ -402,16 +488,40 @@ class BaseTrainer:
         """The optimizer state of ``self.params``."""
         return self.model.init_opt_state(self.optimizer, self.params)
 
+    @_bound
     def init_state(self) -> None:
         """Fresh fp32 params and model state from a CPU generator seeded
         ``seed + 1`` (the reference's ``PRNGKey(seed + 1)``; the same
         values whatever the device, so every rank starts alike) and their
-        optimizer state, on the device."""
-        params, state = self.model.init_params(
-            torch.Generator().manual_seed(self.seed + 1))
+        optimizer state, on the device (:meth:`place`)."""
+        self.place(*self.model.init_params(
+            torch.Generator().manual_seed(self.seed + 1)))
+
+    @_bound
+    def place(self, params, state) -> None:
+        """Take whole params and model state (the reference's global
+        layout) as this rank's: its shards under a model group (the
+        model's ``param_specs``), on the device, with a fresh optimizer
+        state."""
+        lay = self.layout
+        if lay.n_model > 1:
+            self.specs = self.model.param_specs(params)
+            check_divisible(params, self.specs, lay.n_model)
+            params = shard_tree(params, self.specs, lay.model_index,
+                                lay.n_model)
         self.params = tree_to(params, self.device)
         self.state = tree_to(state, self.device)
         self.opt_state = self.init_opt_state()
+
+    def gathered(self, tree, specs=None):
+        """``tree`` (the params, or a tree shaped like them: ``specs``
+        None takes :attr:`specs`) in the global layout: the shards joined
+        over the model group (a collective), or as it is without one."""
+        specs = self.specs if specs is None else specs
+        if specs is None:
+            return tree
+        return gather_tree(tree, specs, self.layout.model_group,
+                           self.layout.n_model)
 
     def _maybe_ramp(self, epoch: int) -> None:
         """Epoch-boundary hook, called at the top of each epoch (BSP swaps
@@ -426,7 +536,7 @@ class BaseTrainer:
         """Build the step closure around the rule's exchanger."""
         self._step_fn = make_train_step(self.model, self.optimizer,
                                         self.exchanger, self.seed,
-                                        self.device)
+                                        self.device, lambda: self.specs)
 
     def post_step(self) -> None:
         """The rule's periodic exchange, after every step, with
@@ -440,6 +550,7 @@ class BaseTrainer:
         """-> (params, state) that validation evaluates."""
         return self.params, self.state
 
+    @_bound
     def warmup(self) -> None:
         """Run every path once (a step, the rule's exchange, a validation
         batch), then reset to a fresh init: timing harnesses call this so
@@ -481,6 +592,7 @@ class BaseTrainer:
                                  reduce=r.reduce)
 
     # -- iteration ------------------------------------------------------------
+    @_bound
     def train_iter(self, batch: dict, lr: float):
         r = self.recorder
         r.start("wait")
@@ -503,9 +615,11 @@ class BaseTrainer:
         return metrics
 
     def rows(self, global_rows: int) -> tuple[int, int]:
-        """This rank's rows of a global batch of ``global_rows``."""
+        """This rank's rows of a global batch of ``global_rows``: its data
+        index's (the ranks of a model group take the same rows)."""
         b = global_rows // self.n_workers
-        return self.rank * b, (self.rank + 1) * b
+        d = self.layout.data_index
+        return d * b, (d + 1) * b
 
     def train_batches(self, epoch: int, start_batch: int = 0):
         """This rank's rows of the epoch's global batches, from batch
@@ -528,6 +642,7 @@ class BaseTrainer:
                         stall_timeout=self.prefetch_stall_timeout,
                         start_batch=start_batch)
 
+    @_bound
     def val_iter(self, batch: dict, eval_args=None) -> dict:
         """The metrics of this rank's share of a validation batch, on
         ``eval_args`` (None: :meth:`eval_args`, which may be collective:
@@ -540,6 +655,7 @@ class BaseTrainer:
                                                  train=False)
         return metrics
 
+    @_bound
     def validate(self, epoch: int) -> dict:
         # the largest worker-divisible batch, as the reference (:1024)
         vb = min(self.global_batch, self.model.data.n_val)
@@ -565,6 +681,17 @@ class BaseTrainer:
         templates)."""
         return {"params": self.params, "state": self.state,
                 "opt_state": self.opt_state}
+
+    def _tree_specs(self) -> dict | None:
+        """The specs of :meth:`checkpoint_trees` (None: nothing is cut):
+        the params', each params-shaped tree of the optimizer state's
+        (SGD's velocity, Adam's moments), the rest replicated."""
+        if self.specs is None:
+            return None
+        return {"params": self.specs,
+                "state": tree_map(lambda _: None, self.state),
+                "opt_state": {k: self.specs if isinstance(v, dict) else None
+                              for k, v in self.opt_state.items()}}
 
     def _zero1_layout(self):
         """``zero1``'s bucket layout at this run's world (None for the
@@ -593,8 +720,8 @@ class BaseTrainer:
         identity, so a port run at N ranks matches a reference run on an
         N-device mesh."""
         return {
-            "mesh": {"data": self.n_workers, "pipe": 1, "model": 1,
-                     "seq": 1},
+            "mesh": {"data": self.n_workers, "pipe": 1,
+                     "model": self.layout.n_model, "seq": 1},
             "exchange": getattr(self.exchanger, "strategy",
                                 type(self).__name__),
             "n_subb": int(self.model.config.get("n_subb", 1) or 1),
@@ -622,6 +749,7 @@ class BaseTrainer:
                 "global_batch": int(self.global_batch),
                 "seed": int(self.seed), "dataset": dataset}
 
+    @_bound
     def save_checkpoint(self, epoch: int, completed: bool = True):
         """Start a save of the train state as epoch ``epoch``; -> its
         handle on rank 0 (None elsewhere, or without a directory).
@@ -633,6 +761,15 @@ class BaseTrainer:
             return None
         trees = self.checkpoint_trees()
         gathered = []
+        specs = self._tree_specs()
+        if specs is not None:
+            if self.layout.data_index != 0:
+                return None
+            # rank 0's model group gathers its shards; rank 0 writes them
+            trees = {k: self.gathered(v, specs[k]) for k, v in trees.items()}
+            gathered = [x for k in trees for (_, x), (_, d) in zip(
+                tree_leaves_with_path(trees[k]),
+                tree_leaves_with_path(specs[k])) if d is not None]
         if self.exchanger.fuses_update and self.n_workers > 1:
             trees["opt_state"] = self.exchanger.zero1_gather_opt_state(
                 trees["opt_state"])
@@ -648,17 +785,37 @@ class BaseTrainer:
             data_state=self._data_state(epoch, completed),
             handed_over=gathered)
 
+    @_bound
     def reserve_checkpoint_staging(self) -> None:
         """Allocate the pinned host memory that rank 0's saves stage the
         card's leaves through, before the first step: the first save's
         snapshot then costs what the later ones do."""
         if self.checkpointer is None or self.rank != 0:
             return
-        trees = self.checkpoint_trees()
+        trees = self._full_templates(
+            "meta" if self.device.type == "cuda" else None)
         if self.exchanger.fuses_update:
             trees["opt_state"] = self.exchanger.zero1_gathered_like(
                 trees["opt_state"])
         self.checkpointer.reserve(trees)
+
+    def _full_templates(self, device=None) -> dict:
+        """:meth:`checkpoint_trees` in the global layout, uninitialised
+        (``device`` None: each leaf's own) where a tree is cut; the live
+        trees where nothing is."""
+        trees, specs = self.checkpoint_trees(), self._tree_specs()
+        if specs is None:
+            return trees
+        return {k: full_like(v, specs[k], self.layout.n_model, device)
+                for k, v in trees.items()}
+
+    def _cut(self, restored: dict) -> dict:
+        """Restored global-layout trees -> this rank's shards."""
+        specs, lay = self._tree_specs(), self.layout
+        if specs is None:
+            return restored
+        return {k: shard_tree(v, specs[k], lay.model_index, lay.n_model)
+                for k, v in restored.items()}
 
     def _resume_verify_level(self) -> str:
         """``auto``: the full per-leaf hash after an unclean exit (the
@@ -667,6 +824,7 @@ class BaseTrainer:
             return self.checkpoint_verify
         return "full" if self.checkpointer.was_unclean() else "fast"
 
+    @_bound
     def try_resume(self) -> bool:
         """Restore the newest verifiable checkpoint; -> resumed or not.
         Call after ``init_state`` (the fresh state is the template).  Rank
@@ -685,17 +843,17 @@ class BaseTrainer:
         if self.rank == 0:
             try:
                 res = ck.load_latest_verified(
-                    self.checkpoint_trees(),
+                    self._full_templates(),
                     verify=self._resume_verify_level())
             except Exception as e:
-                if self.n_workers == 1:
+                if self.world == 1:
                     raise
                 err = e
                 code = next((i for i, c in enumerate(_RESUME_ERRORS, 1)
                              if isinstance(e, c)), len(_RESUME_ERRORS))
             if res is not None:
                 epoch, iteration, restored = res
-        if self.n_workers > 1:
+        if self.world > 1:
             agreed = torch.tensor([code, epoch, iteration],
                                   dtype=torch.int64, device=self.device)
             dist.broadcast(agreed, 0)
@@ -710,9 +868,9 @@ class BaseTrainer:
         if self.rank == 0:
             man = ck.last_loaded_manifest or {}
         else:
-            restored = ck.load(epoch, self.checkpoint_trees(), verify="none")
+            restored = ck.load(epoch, self._full_templates(), verify="none")
             man = ckpt_lib.read_manifest(ck._path(epoch))
-        for name, tree in restored.items():
+        for name, tree in self._cut(restored).items():
             setattr(self, name, tree)
         ds = man.get("data_state")
         if ds and not ds.get("completed", True):
@@ -801,6 +959,7 @@ class BaseTrainer:
             # prefetcher open: stop its thread
             close_feed(batches)
 
+    @_bound
     def run(self, stop=None):
         """Train to completion; ``stop(epoch, val_metrics) -> bool`` may
         end it early.  -> the recorder."""
@@ -865,20 +1024,22 @@ class Rule:
              modelclass: str = "TransformerLM",
              model_config: dict | None = None, device=None):
         self.check_config()
-        unported = sorted(
-            k for k, v in self.config.items() if k in NOT_PORTED_KEYS
-            and not (k in AXIS_KEYS.values() and int(v or 1) == 1))
+        unported = unported_keys(self.config)
         if unported:
             raise NotImplementedError(
                 f"rule keys {unported} not yet ported (ROADMAP queue 1: "
                 f"the reshard and the resilience stack item 14, "
-                f"telemetry item 15, sharded meshes item 13)")
-        n = tdist.world()
+                f"telemetry item 15)")
+        self.layout = mesh.make_layout(
+            *(self.config.get(AXIS_KEYS[a], 1) for a in ("model", "seq",
+                                                         "pipe")))
+        n, k = self.layout.n_data, self.layout.n_model
         if devices is not None and devices != n:
             raise ValueError(
-                f"devices={devices!r} in a run of {n} rank(s): start "
-                f"{devices} ranks (theanompi_torch.dist.spawn, or the "
-                f"launcher's --devices {devices}), each calling init")
+                f"devices={devices!r} in a run of {tdist.world()} rank(s) "
+                f"at n_model={k}: start {devices * k} ranks "
+                f"(theanompi_torch.dist.spawn, or the launcher's --devices "
+                f"{devices}), each calling init")
         device = resolve_device(device)
         model_config = dict(model_config or {})
         self.adjust_model_config(model_config, n)
@@ -898,7 +1059,8 @@ class Rule:
     def trainer_kwargs(self) -> dict:
         """The rule config's keys that every trainer takes."""
         c = self.config
-        return {"seed": c.get("seed", 0),
+        return {"layout": getattr(self, "layout", None),
+                "seed": c.get("seed", 0),
                 "prefetch_depth": c.get("prefetch", 2),
                 "prefetch_stall_timeout": c.get("prefetch_stall_timeout"),
                 "checkpoint_dir": c.get("checkpoint_dir"),

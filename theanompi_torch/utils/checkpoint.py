@@ -104,6 +104,17 @@ class CheckpointFingerprintError(CheckpointError):
     ``--resume-force`` / the ``resume_force`` rule key."""
 
 
+class CheckpointReshardableMismatch(CheckpointFingerprintError):
+    """A fingerprint mismatch confined to the topology keys (mesh,
+    exchange strategy, ``n_subb``): the model is the same, and the
+    reference's ``--resume-reshard`` could re-lay it out (the port's
+    reshard is ROADMAP item 14).  Still a refusal (exit 78)."""
+
+
+#: the fingerprint keys a topology change moves (the reference's :357)
+RESHARDABLE_FP_KEYS = ("mesh", "exchange", "n_subb")
+
+
 # -- leaves ------------------------------------------------------------------
 
 def _leaf_key(path) -> str:
@@ -417,10 +428,11 @@ def check_fingerprint(manifest: dict, mine: dict | None, npz_path: str,
                       force: bool = False, subset: bool = False) -> None:
     """Refuse a checkpoint of another run (or warn, under ``force``).
     Skipped when either side has no fingerprint.  The refusal names the
-    keys that differ.  ``subset=True`` compares only the keys ``mine``
-    provides: the serving consumer's mode (the reference's :379), which
-    has no mesh or exchange to match but must match the model class and
-    config."""
+    keys that differ, and is typed by them: a mismatch of the topology
+    keys alone raises :class:`CheckpointReshardableMismatch`.
+    ``subset=True`` compares only the keys ``mine`` provides: the serving
+    consumer's mode (the reference's :379), which has no mesh or exchange
+    to match but must match the model class and config."""
     theirs = manifest.get("fingerprint")
     if theirs is None or mine is None:
         return
@@ -447,6 +459,10 @@ def check_fingerprint(manifest: dict, mine: dict | None, npz_path: str,
         print(f"checkpoint: WARNING: {msg}; proceeding (force)",
               file=sys.stderr, flush=True)
         return
+    if not subset and all(k in RESHARDABLE_FP_KEYS
+                          for k in set(theirs) | set(mine)
+                          if theirs.get(k) != mine.get(k)):
+        raise CheckpointReshardableMismatch(msg)
     raise CheckpointFingerprintError(msg)
 
 
